@@ -9,22 +9,35 @@ Phases, each printing one JSON line:
   3 parity   each hand-written kernel against its plain PyTorch version on
              the card, f32 and bf16, at the main path's shapes (one
              whisper-tiny layer over 256 sequences x 256 tokens), at the
-             strict attention geometry (T = 1500, score scales 1e-3..1e3)
-             and at whisper-base width (D = 512, T = 1500), with times;
+             strict attention geometry (T = 1500, score scales 1e-3..1e3,
+             kernel A under K1's contract and under K3's) and at whisper-base width
+             (D = 512, T = 1500), with times; the attention backward
+             (kernel D) at the training shapes (128 sequences x 6 heads x
+             T = 256) and at T = 1500; the layer's gradients through
+             FusedBlock (kernels) against autograd of the plain layer;
   4 search   the MLGWSC-1 search on the capstone weights at (80, 512): a
              300 s dual-detector segment (blocked whitening), batch 128,
              bf16 on the kernels; launch counters prove every encoder layer
              ran on them; the first 4 batches are then rescored in f32 on
              the plain path and compared;
-  5 kernels  one line per the kernel table (times, bound, launches);
+  5 train    the capstone recipe through Trainer.fit for 2 short epochs
+             (the capstone encoder frozen, fresh adapters, head and
+             Q-adapter, batch 64, bf16 on the kernels, Adam 3e-4, clip 100)
+             on a synthetic injection set; launch counters per step, the
+             losses, the exports loaded back and scored, steps/s (median
+             of three 8-step windows), and the device time of a step by
+             kernel group;
+  6 kernels  one line per the kernel table (times, bound, launches);
 then the card's name and power limit, and the result line last.
 Fails (non-zero exit, no result line) on any disagreement, and without CUDA.
 """
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,10 +52,12 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core peak (H100 SXM data sheet)
 H100_F32_FLOPS = 67e12    # f32 outside the tensor cores: the f32 kernels use FMA, not TF32
 H100_BYTES = 3.35e12      # HBM3
 CAPSTONE = "artifacts/capstone_r5"
-SOURCES = {"attention": "gwkit_torch/csrc/attention.cu", "ln_gemm": "gwkit_torch/csrc/ln_gemm.cu",
-           "fused_mlp": "gwkit_torch/csrc/fused_mlp.cu"}
-REPLACES = {"attention": "gwkit/ops/attention.py:30", "ln_gemm": "gwkit/ops/fused_block.py:112",
-            "fused_mlp": "gwkit/ops/fused_mlp.py:31"}
+KERNELS = ("attention", "attention_bwd", "ln_gemm", "fused_mlp")
+SOURCES = {name: f"gwkit_torch/csrc/{name}.cu" for name in KERNELS}
+REPLACES = {"attention": "gwkit/ops/attention.py:30", "attention_bwd": "gwkit/ops/attention.py:93",
+            "ln_gemm": "gwkit/ops/fused_block.py:112", "fused_mlp": "gwkit/ops/fused_mlp.py:31"}
+# __global__ grids one counted launch runs: kernel D is dq_kernel, then dkdv_kernel
+GRIDS_PER_LAUNCH = {"attention": 1, "attention_bwd": 2, "ln_gemm": 1, "fused_mlp": 1}
 # tolerances, as max |kernel - plain| <= tol * max |plain| and
 # mean |kernel - plain| <= tol * mean |plain| (the mean term holds small
 # outputs, e.g. attention over 1500 keys at score scale 1e-3, to their size):
@@ -123,7 +138,7 @@ def build_phase():
 
 def _layer(D, F, H, rng, dora):
     """Random layer params (gwkit layout, init scales like gwkit's) and DoRA adapters."""
-    u = lambda *s, fan: torch.from_numpy(rng.uniform(-1, 1, size=s).astype(np.float32) / np.sqrt(fan))
+    u = lambda *s, fan: torch.from_numpy((rng.uniform(-1, 1, size=s) / np.sqrt(fan)).astype(np.float32))
     lin = lambda i, o, bias=True: {"w": u(i, o, fan=i), **({"b": u(o, fan=i)} if bias else {})}
     ln = lambda: {"g": torch.from_numpy(1 + 0.1 * rng.normal(size=D).astype(np.float32)),
                   "b": torch.from_numpy(0.1 * rng.normal(size=D).astype(np.float32))}
@@ -136,7 +151,7 @@ def _layer(D, F, H, rng, dora):
             w0 = p[name]["w"]
             ad[name] = {"a": u(D, 8, fan=D), "b": torch.from_numpy(0.05 * rng.normal(size=(8, D)).astype(np.float32)),
                         "m": w0.norm(dim=0) * torch.from_numpy(1 + 0.05 * rng.normal(size=D).astype(np.float32)),
-                        "scaling": 4.0}
+                        "scaling": torch.tensor(4.0)}
     to = lambda t: {k: to(v) for k, v in t.items()} if isinstance(t, dict) else (
         t.cuda() if isinstance(t, torch.Tensor) else t)
     return to(p), (to(ad) if ad else None)
@@ -225,15 +240,23 @@ def parity_phase(checks):
             if dt == torch.bfloat16:
                 records[name] = rec
 
-        # K1 at the strict geometry, adversarial score scales
+        # kernel A under both softmax contracts at the strict geometry,
+        # adversarial score scales: K1's (flash_attention, p normalised in
+        # f32 before the cast) and K3's (attention_from_qkv on the fused
+        # projection, the search path's)
         Bq, Tq = 64, 1500
         for scale in (1e-3, 1.0, 60.0, 1e3):
             q = torch.from_numpy(rng.normal(size=(Bq, Tq, H, 64)).astype(np.float32) * scale / 8).cuda().to(dt)
             k, v = (torch.from_numpy(rng.normal(size=(Bq, Tq, H, 64)).astype(np.float32)).cuda().to(dt)
                     for _ in range(2))
-            got = A.flash_attention(q, k, v)
+            want = A.reference_attention(q, k, v)
             t_tol = tol if dt == torch.bfloat16 else max(tol, 4e-6 * scale)
-            checks.compare(f"K1 attention T=1500 scale={scale:g} {tag}", got, A.reference_attention(q, k, v), t_tol)
+            got = A.flash_attention(q, k, v)
+            checks.compare(f"K1 attention (K1 contract) T=1500 scale={scale:g} {tag}", got, want, t_tol)
+            fused_qkv = torch.cat([t.reshape(Bq, Tq, H * 64) for t in (q, k, v)], dim=-1)
+            checks.compare(f"A attention_from_qkv (K3 contract) T=1500 scale={scale:g} {tag}",
+                           A.attention_from_qkv(fused_qkv, H), want.reshape(Bq, Tq, H * 64), t_tol)
+            del fused_qkv, want
             if scale == 1.0:
                 qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
                 emit("timing", name="attention", dtype=tag, shapes="strict: 64 seq x 6 heads x T=1500",
@@ -268,32 +291,125 @@ def parity_phase(checks):
     return records
 
 
+def attention_bwd_phase(checks):
+    """Kernel D against its plain version, f32 and bf16, at the training
+    shapes and at the strict T = 1500; returns the bf16 training-shape record."""
+    rng = np.random.default_rng(1)
+    record = None
+    for dt in (torch.float32, torch.bfloat16):
+        tag = "f32" if dt == torch.float32 else "bf16"
+        for Bs, T, scales in ((128, 256, (1.0,)), (32, 1500, (1e-3, 1.0, 60.0, 1e3))):
+            for scale in scales:
+                q = torch.from_numpy(rng.normal(size=(Bs, T, 6, 64)).astype(np.float32) * scale / 8).cuda().to(dt)
+                k, v, do = (torch.from_numpy(rng.normal(size=(Bs, T, 6, 64)).astype(np.float32)).cuda().to(dt)
+                            for _ in range(3))
+                got = A.attention_bwd(q, k, v, do)
+                want = A.reference_attention_bwd(q, k, v, do)
+                tol = TOL[dt] if dt == torch.bfloat16 else max(TOL[dt], 4e-6 * scale)
+                errs = [checks.compare(f"K5 attention_bwd d{n} {Bs}x6xT={T} scale={scale:g} {tag}", g, w, tol)
+                        for n, g, w in zip("qkv", got, want)]
+                again = A.attention_bwd(q, k, v, do)
+                if not all(bool(torch.equal(a, b)) for a, b in zip(got, again)):
+                    checks.failed.append(f"K5 deterministic {Bs}x6xT={T} {tag}")
+                if T == 256:  # q, k, v read in place from a fused (B, T, 3D) projection
+                    qkv = torch.cat([t.reshape(Bs, T, -1) for t in (q, k, v)], dim=-1)
+                    views = [qkv[..., i * 384:(i + 1) * 384].view(Bs, T, 6, 64) for i in range(3)]
+                    for n, g, w in zip("qkv", A.attention_bwd(*views, do), want):
+                        checks.compare(f"K5 attention_bwd d{n} from fused QKV {Bs}x6xT={T} {tag}", g, w, tol)
+                    del qkv, views
+                if scale == 1.0:
+                    BH = Bs * 6
+                    n_bytes, flops = 7 * BH * T * 64 * q.element_size(), 12 * BH * T * T * 64
+                    b_ms, by = bound_ms(n_bytes, flops, dt)
+                    qh, kh, vh = (t.permute(0, 2, 1, 3).detach().requires_grad_() for t in (q, k, v))
+                    out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+                    doh = do.permute(0, 2, 1, 3)
+                    reps = 15 if T == 256 else 5
+                    rec = dict(name="attention_bwd", dtype=tag, ms=median_ms(lambda: A.attention_bwd(q, k, v, do), reps),
+                               plain_ms=median_ms(lambda: A.reference_attention_bwd(q, k, v, do), reps),
+                               bound_ms=b_ms, bound_by=by,
+                               library_ms=median_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
+                                                                                retain_graph=True), reps),
+                               max_abs_err=max(errs), deterministic=True)
+                    emit("timing", shapes=f"{Bs} seq x 6 heads x T={T}, hd 64", **rec)
+                    if dt == torch.bfloat16 and T == 256:
+                        record = rec
+                    del qh, kh, vh, out
+                del q, k, v, do, got, want, again
+                torch.cuda.empty_cache()
+    return record
+
+
+def _flat_grads(tree):
+    from gwkit_torch.io import tree_leaves
+
+    return [t.grad for t in tree_leaves(tree)]
+
+
+def _with_grad(tree):
+    if isinstance(tree, dict):
+        return {k: _with_grad(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_with_grad(v) for v in tree]
+    return tree.detach().clone().requires_grad_() if isinstance(tree, torch.Tensor) else tree
+
+
+def layer_grad_phase(checks):
+    """The layer's gradients through FusedBlock (forward chain B-A-B-C,
+    backward recompute with kernel A under K1's contract and kernel D)
+    against autograd of the plain layer (whisper._block), f32 per leaf."""
+    from gwkit_torch.io import tree_leaves
+    from gwkit_torch.models.whisper import _block, config_for
+
+    rng = np.random.default_rng(2)
+    D, F, H = 384, 1536, 6
+    p, ad = _layer(D, F, H, rng, True)
+    x = torch.from_numpy(rng.normal(size=(128, 256, D)).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.normal(size=(128, 256, D)).astype(np.float32)).cuda()
+    cfg = config_for("tiny", gelu_approx=True)
+    sides = []
+    for fused in (True, False):
+        xs, ps, ads = x.clone().requires_grad_(), _with_grad(p), _with_grad(ad)
+        out = FB.fused_encoder_block(xs, ps, H, ads, approx=True) if fused else _block(xs, ps, cfg, ads)
+        (out * w).sum().backward()
+        sides.append([xs.grad] + _flat_grads(ps) + _flat_grads(ads))
+    names = ["x"] + [f"p{i}" for i in range(len(tree_leaves(p)))] + [f"adapter{i}" for i in range(len(tree_leaves(ad)))]
+    worst = 0.0
+    for name, g, r in zip(names, *sides):
+        err, ref = float((g - r).abs().max()), float(r.abs().max())
+        worst = max(worst, err / ref)
+        if not (torch.isfinite(g).all() and err <= 1e-3 * ref):
+            checks.failed.append(f"FusedBlock grad {name} f32")
+    emit("parity", check="FusedBlock layer gradients vs autograd of the plain layer, f32 (128 x 256, D=384)",
+         leaves=len(names), worst_max_err_over_max_grad=worst, tol=1e-3, ok=worst <= 1e-3)
+
+
 def _kernel_group(name):
     low = name.lower()
-    for key in ("attention_kernel", "ln_gemm_kernel", "fused_mlp_kernel"):
+    for key in ("attention_kernel", "dq_kernel", "dkdv_kernel", "ln_gemm_kernel", "fused_mlp_kernel"):
         if key in low:
             return key
     if "fft" in low:
         return "fft (whitening, Q-scan)"
-    if "conv" in low or "cudnn" in low or "xmma" in low or "implicit" in low:
+    if any(k in low for k in ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad")):
         return "convolution (stem, Q-adapter)"
-    if "gemm" in low or "cutlass" in low:
-        return "library gemm (head, pooling)"
+    if any(k in low for k in ("gemm", "cutlass", "nvjet", "xmma")):
+        return "library gemm (projections, head, pooling)"
     if "sort" in low or "radix" in low:
         return "sort (medians)"
     return "other (elementwise, gathers, reductions)"
 
 
-def profile_search(score, seg, cfg, threshold, dev):
-    """One more pass of the search under torch.profiler: device time by
-    kernel group, and the device's busy share of the wall time."""
+def profiled(phase, fn, **extra):
+    """Run ``fn`` once under torch.profiler and emit the device time by
+    kernel group and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from gwkit_torch.search.engine import score_segments
-
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        score_segments(score, [seg], cfg, trigger_threshold=threshold, device=dev)
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     groups, top = {}, []
     for evt in prof.key_averages():
@@ -307,10 +423,10 @@ def profile_search(score, seg, cfg, threshold, dev):
         top.append((us / 1e3, evt.key[:80], evt.count))
     device_ms = sum(groups.values())
     top.sort(reverse=True)
-    emit("profile", wall_ms_profiled=wall_ms, device_ms=device_ms if device_ms else "not measured",
+    emit(phase, **extra, wall_ms_profiled=wall_ms, device_ms=device_ms if device_ms else "not measured",
          device_busy_share=device_ms / wall_ms if device_ms else "not measured",
          device_ms_by_group={k: v for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
-         top_kernels=[{"ms": t, "name": n, "count": c} for t, n, c in top[:12]])
+         top_kernels=[{"ms": t, "name": n, "count": c} for t, n, c in top[:14]])
 
 
 def search_phase(checks, smi):
@@ -350,7 +466,7 @@ def search_phase(checks, smi):
     times, stats, _ = get_clusters(res.triggers)
     n_trig = sum(len(v) for v in res.triggers.values())
     nb, nl = n_batches[0], enc.n_layers
-    expect = {"attention": nl * nb, "ln_gemm": 2 * nl * nb, "fused_mlp": nl * nb}
+    expect = {"attention": nl * nb, "attention_bwd": 0, "ln_gemm": 2 * nl * nb, "fused_mlp": nl * nb}
     ok = launches == expect and not plain
     emit("search", card=smi, seconds=seconds, windows=res.n_windows, batches=nb, triggers=n_trig,
          clusters=int(len(times)), threshold=threshold, wall_s=res.wall_seconds,
@@ -362,7 +478,7 @@ def search_phase(checks, smi):
         checks.failed.append("launch counters")
     assert res.n_windows == 3000 and len(res.all_vals) == 3000 and np.isfinite(res.all_vals).all()
     assert 0 < n_trig < res.n_windows and 0 < len(times) <= n_trig
-    profile_search(score, seg, cfg, threshold, dev)
+    profiled("profile", lambda: score_segments(score, [seg], cfg, trigger_threshold=threshold, device=dev))
 
     # the first 4 batches again: f32 plain path (the reference) and f32 on the kernels
     batches = []
@@ -395,6 +511,142 @@ def search_phase(checks, smi):
     return launches
 
 
+def _chirps(n, rng, fs=2048):
+    """n two-detector chirp-like waveforms of 1 s, each detector scaled to
+    unit norm (so the dataset's SNR factor sets the amplitude)."""
+    t = np.arange(fs) / fs
+    out = np.zeros((n, 2, fs), np.float32)
+    for i in range(n):
+        f0, f1, tc = rng.uniform(30, 60), rng.uniform(150, 400), rng.uniform(0.5, 0.9)
+        phase = 2 * np.pi * (f0 * t + 0.5 * (f1 - f0) * t ** 2 / tc)
+        env = np.exp(-((t - tc) / 0.12) ** 2)
+        for d in range(2):
+            h = np.sin(phase + rng.uniform(0, 2 * np.pi)) * env
+            out[i, d] = h / np.linalg.norm(h)
+    return out
+
+
+def _grad_groups(task, batch):
+    """Gradients of the task's loss on ``batch``, flattened per group."""
+    from gwkit_torch.io import tree_leaves
+
+    tr = _with_grad(task.trainable)
+    loss, _ = task.loss_fn(tr, task.frozen, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(tr), allow_unused=True)
+    out, i = {}, 0
+    for key in ("adapters", "head", "qadapter"):
+        n = len(tree_leaves(tr[key]))
+        out[key] = torch.cat([g.float().flatten() for g in grads[i:i + n]])
+        i += n
+    return out
+
+
+def train_phase(checks, smi):
+    """The capstone recipe through Trainer.fit on the kernels; returns the
+    launches of kernel D (and the others) in this phase."""
+    from gwkit_torch.cli.inference import _load_gwkit_encoder, load_task_from_components
+    from gwkit_torch.data.datasets import InjectionDataset
+    from gwkit_torch.io import from_gwkit_numpy
+    from gwkit_torch.models.adapters import AdapterConfig
+    from gwkit_torch.models.qadapter import QAdapterConfig
+    from gwkit_torch.models.whisper import config_for
+    from gwkit_torch.train.tasks import build_mlgwsc
+    from gwkit_torch.train.trainer import TrainConfig, Trainer
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    frames, batch = 512, 64
+    enc_cfg = config_for("tiny", compute_dtype=torch.bfloat16, fused_block=True, gelu_approx=True,
+                         max_positions=frames // 2)
+    encoder = from_gwkit_numpy(encoder=_load_gwkit_encoder(f"{CAPSTONE}/encoder_pretrained.npz", "tiny",
+                                                           enc_cfg))["encoder"]
+    qcfg = QAdapterConfig(median_stride=8, target_shape=(80, frames))
+    acfg = AdapterConfig(r=8, alpha=32, use_dora=True, targets="qkvo")
+    task = build_mlgwsc(enc_cfg, qcfg, {"encoder": encoder}, usr=False, device=dev, acfg=acfg, seed=0)
+
+    rng = np.random.default_rng(0)
+    snr = (7.0, 20.0)
+    train = InjectionDataset(rng.normal(size=(1024, 2, 2048)).astype(np.float32), _chirps(512, rng), snr, dev)
+    valid = InjectionDataset(rng.normal(size=(256, 2, 2048)).astype(np.float32), _chirps(128, rng), snr, dev)
+
+    # the step's gradients on the kernels against the plain layer, bf16, per group
+    probe = next(train.batches(torch.Generator().manual_seed(5), batch))
+    plain = build_mlgwsc(dataclasses.replace(enc_cfg, fused_block=False), qcfg, task.params, usr=False,
+                         device=dev, acfg=acfg)
+    g_k, g_p = _grad_groups(task, probe), _grad_groups(plain, probe)
+    for key in g_k:
+        a, b = g_k[key], g_p[key]
+        cos = float(torch.dot(a, b) / (a.norm() * b.norm()))
+        ratio = float(a.norm() / b.norm())
+        ok = cos >= 0.99 and 0.95 <= ratio <= 1.05
+        emit("parity", check=f"train-step gradients, {key}: kernels vs plain layer (bf16)", cosine=cos,
+             norm_ratio=ratio, tol={"cosine": 0.99, "norm_ratio": [0.95, 1.05]}, ok=ok)
+        if not ok:
+            checks.failed.append(f"train gradients {key}")
+    del plain, g_k, g_p
+
+    counts = {"train": 0, "valid": 0}
+
+    def counted(kind, it):
+        for b in it:
+            counts[kind] += 1
+            yield b
+
+    cfg = TrainConfig(learning_rate=3e-4, clip_norm=100.0, epochs=2, batch_size=batch, early_stop_patience=2,
+                      optimizer="adam", seed=0)
+    trainer = Trainer(task.loss_fn, task.trainable, task.frozen, cfg, export_components=task.export_components)
+    epochs = []
+    with tempfile.TemporaryDirectory() as out:
+        _cuda.reset_counts()
+        t0 = time.time()
+        best = trainer.fit(lambda g: counted("train", train.batches(g, batch)),
+                           lambda g: counted("valid", valid.batches(g, batch, shuffle=False, drop_remainder=False)),
+                           outdir=out)
+        torch.cuda.synchronize()
+        fit_s = time.time() - t0
+        launches, plain_calls = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+        lines = open(os.path.join(out, "losses.txt")).read().splitlines()
+        epochs = [[float(v) for v in ln.split("\t")[1:]] for ln in lines]
+        files = [os.path.join(out, n) for n in ("best_lora_weights", "best_dense_layers.npz", "best_adapter.npz")]
+        written = all(os.path.exists(f) for f in files) and os.path.isfile(os.path.join(out, "last.ckpt"))
+        served = load_task_from_components(*files, pretrained_encoder=f"{CAPSTONE}/encoder_pretrained.npz",
+                                           target_shape=(80, frames))
+        scores = served.score(probe[0][:16]).float().cpu().numpy()
+
+    nt, nv, L = counts["train"], counts["valid"], enc_cfg.n_layers
+    expect = {"attention": 2 * L * nt + L * nv, "attention_bwd": L * nt, "ln_gemm": 2 * L * (nt + nv),
+              "fused_mlp": L * (nt + nv)}
+    finite = bool(np.isfinite(np.asarray(epochs)).all()) and len(epochs) == 2
+    ok = launches == expect and not plain_calls and finite and written and bool(np.isfinite(scores).all())
+
+    # steps per second: three timed windows of 8 more steps (the host-bound
+    # step spreads from window to window), then a profiled window of 3
+    steps = list(train.batches(torch.Generator().manual_seed(9), batch))[:8]
+    trainer.run_epoch(steps[:1])
+    window_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trainer.run_epoch(steps)
+        torch.cuda.synchronize()
+        window_s.append((time.time() - t0) / len(steps))
+    step_s = statistics.median(window_s)
+    emit("train", card=smi, recipe="capstone: whisper-tiny (capstone encoder, frozen), DoRA r=8 a=32 qkvo, "
+         "Q-adapter median_stride=8 at (80, 512), batch 64 (128 sequences x 256 tokens), bf16, Adam 3e-4, clip 100",
+         train_steps=nt, valid_batches=nv, losses=epochs, best_val=best, fit_s=fit_s,
+         launches=launches, expected_launches=expect, launches_per_train_step={"attention": 2 * L,
+         "attention_bwd": L, "ln_gemm": 2 * L, "fused_mlp": L}, plain_calls=plain_calls,
+         exports_written=written, exported_scores=scores[:4].tolist(), step_ms=step_s * 1e3,
+         steps_per_s=1 / step_s, samples_per_s=batch / step_s,
+         samples_per_s_by_window=[batch / w for w in window_s], fit_samples_per_s=batch * nt / fit_s,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         ok=ok)
+    if not ok:
+        checks.failed.append("train phase")
+    profiled("train_profile", lambda: trainer.run_epoch(steps[:3]), steps=3)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -403,14 +655,21 @@ def main():
     smi = device_phase()
     build_phase()
     records = parity_phase(checks)
-    launches = search_phase(checks, smi)
+    records["attention_bwd"] = attention_bwd_phase(checks)
+    layer_grad_phase(checks)
+    search = search_phase(checks, smi)
+    train = train_phase(checks, smi)
     kernels = []
-    for name in ("attention", "ln_gemm", "fused_mlp"):
+    for name in KERNELS:
         r = records[name]
+        # each kernel's launches on its own path: the search (forward) or,
+        # for the attention backward, training
+        main_path = train if name == "attention_bwd" else search
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-                        "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "launches": main_path[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"], "grids_per_launch": GRIDS_PER_LAUNCH[name],
+                        "launches_by_path": {"search": search.get(name, 0), "train": train.get(name, 0)}})
     if checks.failed:
         print("chip_smoke: FAILED " + ", ".join(checks.failed), file=sys.stderr)
         sys.exit(1)

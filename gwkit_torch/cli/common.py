@@ -76,21 +76,84 @@ def parse_with_config(parser: argparse.ArgumentParser, argv=None) -> argparse.Na
     return args
 
 
-def dump_config(args: argparse.Namespace, output_file: Optional[str]) -> Optional[str]:
-    """Write the resolved config as ``<output_file>.config.json`` beside the output."""
-    if not output_file:
+def dump_config(args: argparse.Namespace, output: Optional[str]) -> Optional[str]:
+    """Write the resolved config beside the run's outputs: for an output
+    file ``<file>.config.json`` next to it, for an output directory
+    ``config.json`` inside it (as gwkit's ``dump_config``)."""
+    if not output:
         return None
     tree: Dict[str, dict] = {}
     for dest, val in sorted(vars(args).items()):
         if dest not in _RUN_ONLY:
             tree.setdefault(SECTIONS.get(dest, "run"), {})[dest] = val
-    outdir = os.path.dirname(os.path.abspath(output_file))
+    if os.path.splitext(output)[1]:
+        outdir, name = os.path.dirname(os.path.abspath(output)), os.path.basename(output) + ".config.json"
+    else:
+        outdir, name = output, "config.json"
     os.makedirs(outdir, exist_ok=True)
-    path = os.path.join(outdir, os.path.basename(output_file) + ".config.json")
+    path = os.path.join(outdir, name)
     with open(path, "w") as f:
         json.dump(tree, f, indent=2, sort_keys=True, default=str)
     logging.info("resolved config written to %s", path)
     return path
+
+
+def add_adapter_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--encoder", type=str, default="tiny",
+                        choices=["tiny", "base", "small", "medium", "large"], help="Whisper encoder size.")
+    parser.add_argument("--method", type=str, default="DoRA", choices=["DoRA", "LoRA"],
+                        help="Adapter variant.")
+    parser.add_argument("--lora-rank", type=int, default=8, help="LoRA rank.")
+    parser.add_argument("--lora-alpha", type=int, default=32, help="LoRA alpha.")
+    parser.add_argument("--target-modules", type=str, default="qkvo",
+                        help="Adapter targets: qkvo|qkv|kv|qv or comma list.")
+    parser.add_argument("--hf-checkpoint", type=str, default=None,
+                        help="Path to HF whisper weights (safetensors/torch) for the base encoder.")
+    parser.add_argument("--pretrained-encoder", type=str, default=None,
+                        help="gwkit encoder pytree (.npz), e.g. the InfoNCE-pretrained encoder.")
+
+
+def build_adapter_config(args):
+    from gwkit_torch.models.adapters import AdapterConfig
+
+    return AdapterConfig(r=args.lora_rank, alpha=args.lora_alpha, use_dora=(args.method == "DoRA"),
+                         targets=args.target_modules)
+
+
+def build_encoder_config(args, n_frames: Optional[int] = None):
+    """The training CLIs' encoder config: on the card bf16, every layer on the
+    kernel chain and tanh GELU (gwkit's accelerator setting); with ``--cpu``
+    f32, the unfused layer and erf GELU."""
+    import torch
+
+    from gwkit_torch.models.whisper import config_for
+
+    on_card = not args.cpu
+    kw = dict(compute_dtype=torch.bfloat16 if on_card else torch.float32, fused_block=on_card,
+              gelu_approx=on_card)
+    if n_frames:
+        kw["max_positions"] = n_frames // 2
+    return config_for(args.encoder, **kw)
+
+
+def load_encoder_params(args, enc_cfg):
+    """The base encoder from ``--hf-checkpoint`` or ``--pretrained-encoder``
+    as the port's parameters (``pos`` re-pinned to ``enc_cfg``), or None."""
+    from gwkit_torch.io import from_gwkit_numpy
+    from gwkit_torch.models.whisper import sinusoid_positions
+
+    if args.hf_checkpoint:
+        from gwkit_torch.models.hf_io import load_hf_encoder
+
+        _, params = load_hf_encoder(args.hf_checkpoint, size=args.encoder)
+        params["pos"] = sinusoid_positions(enc_cfg.max_positions, enc_cfg.d_model)
+    elif args.pretrained_encoder:
+        from gwkit_torch.cli.inference import _load_gwkit_encoder
+
+        params = _load_gwkit_encoder(args.pretrained_encoder, args.encoder, enc_cfg)
+    else:
+        return None
+    return from_gwkit_numpy(encoder=params)["encoder"]
 
 
 def check_file_existence(path: Optional[str], force: bool) -> None:

@@ -5,11 +5,17 @@
 // _attn_block_kernel (K3) / _attn_only_kernel (K4).
 //
 // Contract kept from the TPU kernels: scores in f32; keys at or beyond T
-// masked; the EXACT row max (two passes over the key tiles: the first finds
-// the max, the second forms p = exp(round(s - m)) in the compute type, sums
-// the rounded p in f32 and accumulates p . V in f32); the (64, hd) output is
-// divided by the f32 denominator (fused_block.py:167-170, :209). Masking is
-// by T itself: there is no padding of T to 128.
+// masked; the EXACT row max (two passes over the key tiles). The launch
+// argument `k1` picks which TPU kernel's softmax is reproduced:
+//  * K3/K4 (k1 = 0, the fused layer): pass 1 finds the max, pass 2 forms
+//    p = exp(round(s - m)) in the compute type, sums the rounded p in f32
+//    and accumulates p . V in f32; the (64, hd) output is divided by the
+//    f32 denominator (fused_block.py:167-170, :209).
+//  * K1 (k1 = 1, attention.py:46-52): pass 1 also carries the f32 row sum
+//    l of exp(s - m), rescaled online as the max grows; pass 2 forms
+//    p = exp(s - m) / l in f32, rounds it to the compute type and
+//    accumulates p . V in f32; the output is cast with no division.
+// Masking is by T itself: there is no padding of T to 128.
 //
 // Bound on the H100: at the main path's T = 256, hd = 64 (bf16, 1536
 // sequence-heads) the work is 4 T^2 hd FLOPs per head (26 GFLOP, 0.026 ms)
@@ -39,7 +45,7 @@ template <typename T> struct Attn {
   static constexpr size_t SMEM = 5 * TILE + SS + PS + 2 * align128(BQ * sizeof(float));
 };
 
-template <typename T>
+template <typename T, bool K1>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, int T_len, int H, int ld_in, int ld_out) {
@@ -101,21 +107,39 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         for (int c = lane; c < L::BKV; c += 32)
           if (k0 + c < T_len) mx = fmaxf(mx, Ss[r * L::LDS + c]);
         mx = warp_max(mx);
-        if (lane == 0) mrow[r] = fmaxf(mrow[r], mx);
-      }
-    } else {  // pass 2: p = exp(round(s - m)) in T, f32 row sums, o += p . V in f32
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const int r = warp * kRowsPerWarp + rr;
-        const float m = mrow[r];
-        float sum = 0.f;
-        for (int c = lane; c < L::BKV; c += 32) {
-          float p = 0.f;
-          if (k0 + c < T_len) p = rnd<T>(expf(rnd<T>(Ss[r * L::LDS + c] - m)));
-          Ps[r * L::LDP + c] = from_f<T>(p);
-          sum += p;
+        const float m_old = mrow[r], m_new = fmaxf(m_old, mx);
+        if (K1) {  // the f32 row sum of exp(s - m), rescaled to the new max
+          float sum = 0.f;
+          for (int c = lane; c < L::BKV; c += 32)
+            if (k0 + c < T_len) sum += expf(Ss[r * L::LDS + c] - m_new);
+          sum = warp_sum(sum);
+          if (lane == 0) lrow[r] = lrow[r] * expf(m_old - m_new) + sum;
         }
-        sum = warp_sum(sum);
-        if (lane == 0) lrow[r] += sum;
+        __syncwarp();
+        if (lane == 0) mrow[r] = m_new;
+      }
+    } else {
+      if (K1) {  // pass 2: p = round(exp(s - m) / l) from f32, o += p . V in f32
+        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+          const int r = warp * kRowsPerWarp + rr;
+          const float m = mrow[r], l = lrow[r];
+          for (int c = lane; c < L::BKV; c += 32)
+            Ps[r * L::LDP + c] = from_f<T>(k0 + c < T_len ? expf(Ss[r * L::LDS + c] - m) / l : 0.f);
+        }
+      } else {  // pass 2: p = exp(round(s - m)) in T, f32 row sums, o += p . V in f32
+        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+          const int r = warp * kRowsPerWarp + rr;
+          const float m = mrow[r];
+          float sum = 0.f;
+          for (int c = lane; c < L::BKV; c += 32) {
+            float p = 0.f;
+            if (k0 + c < T_len) p = rnd<T>(expf(rnd<T>(Ss[r * L::LDS + c] - m)));
+            Ps[r * L::LDP + c] = from_f<T>(p);
+            sum += p;
+          }
+          sum = warp_sum(sum);
+          if (lane == 0) lrow[r] += sum;
+        }
       }
       __syncthreads();
       acc.template mma<false>(Ps, L::LDP, Vs[buf], L::LDT, L::BKV);
@@ -130,22 +154,30 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int r = e / L::HD, c = e - r * L::HD;
     const int t = t0 + r;
     if (t < T_len)
-      o[base_out + (long long)t * ld_out + c] = from_f<T>(Ss[r * L::LDS + c] / lrow[r]);
+      o[base_out + (long long)t * ld_out + c] =
+          from_f<T>(K1 ? Ss[r * L::LDS + c] : Ss[r * L::LDS + c] / lrow[r]);
   }
 }
 
-template <typename T>
+template <typename T, bool K1>
 static int launch(const void* q, const void* k, const void* v, void* o, int B, int T_len, int H,
                   int ld_in, int ld_out, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, K1>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Attn<T>::SMEM);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T_len + Attn<T>::BQ - 1) / Attn<T>::BQ, B * H);
-  attention_kernel<T><<<grid, kThreads, Attn<T>::SMEM, stream>>>(
+  attention_kernel<T, K1><<<grid, kThreads, Attn<T>::SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), T_len, H, ld_in, ld_out);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch(const void* q, const void* k, const void* v, void* o, int B, int T_len, int H,
+                  int ld_in, int ld_out, int k1, cudaStream_t stream) {
+  return k1 ? launch<T, true>(q, k, v, o, B, T_len, H, ld_in, ld_out, stream)
+            : launch<T, false>(q, k, v, o, B, T_len, H, ld_in, ld_out, stream);
 }
 
 }  // namespace gw
@@ -154,11 +186,14 @@ static int launch(const void* q, const void* k, const void* v, void* o, int B, i
 // (so (B, T, H, 64) contiguous tensors pass ld_in = H*64, and the fused QKV
 // projection passes its three column blocks with ld_in = 3*H*64); o likewise
 // with ld_out. Head dim 64; ld_in a multiple of 8 and the pointers 16-byte
-// aligned. Returns a cudaError_t.
+// aligned. k1 = 1 takes K1's softmax contract, 0 K3's (see the top of this
+// file). Returns a cudaError_t.
 extern "C" int gw_attention(const void* q, const void* k, const void* v, void* o, int B,
-                            int T_len, int H, int ld_in, int ld_out, int dtype, void* stream) {
+                            int T_len, int H, int ld_in, int ld_out, int dtype, int k1,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == GW_F32) return gw::launch<float>(q, k, v, o, B, T_len, H, ld_in, ld_out, s);
-  if (dtype == GW_BF16) return gw::launch<gw::bf16>(q, k, v, o, B, T_len, H, ld_in, ld_out, s);
+  if (dtype == GW_F32) return gw::launch<float>(q, k, v, o, B, T_len, H, ld_in, ld_out, k1, s);
+  if (dtype == GW_BF16)
+    return gw::launch<gw::bf16>(q, k, v, o, B, T_len, H, ld_in, ld_out, k1, s);
   return (int)cudaErrorInvalidValue;
 }

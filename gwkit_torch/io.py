@@ -127,6 +127,29 @@ _ST_DTYPES = {
 }
 
 
+def write_safetensors(path: str, tensors: Dict[str, np.ndarray]) -> None:
+    """Write numpy arrays as a .safetensors file (names in sorted order, data
+    contiguous, the JSON header padded with spaces to 8 bytes)."""
+    codes = {dt: name for name, dt in _ST_DTYPES.items()}
+    header, chunks, offset = {}, [], 0
+    for name in sorted(tensors):
+        arr = np.ascontiguousarray(tensors[name])  # native little-endian on every supported host
+        raw = arr.tobytes()
+        header[name] = {"dtype": codes[arr.dtype], "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        chunks.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    head += b" " * (-len(head) % 8)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in chunks:
+            f.write(raw)
+    os.replace(tmp, path)
+
+
 def read_safetensors(path: str) -> Dict[str, np.ndarray]:
     """Parse a .safetensors file into numpy arrays (BF16 widens to float32)."""
     with open(path, "rb") as f:
@@ -156,16 +179,29 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
 # peft adapter directories
 # --------------------------------------------------------------------------
 
+TARGET_PRESETS: Dict[str, Tuple[str, ...]] = {
+    "qkvo": ("q", "k", "v", "o"), "qkv": ("q", "k", "v"), "kv": ("k", "v"), "qv": ("q", "v"),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class AdapterConfig:
+    """DoRA/LoRA settings (gwkit's ``AdapterConfig``; re-exported by
+    :mod:`gwkit_torch.models.adapters`)."""
     r: int = 8
     alpha: int = 32
     use_dora: bool = True
-    targets: str = "qkvo"
+    targets: str = "qkvo"  # preset name or comma-separated subset of q,k,v,o
 
     @property
     def scaling(self) -> float:
         return self.alpha / self.r
+
+    @property
+    def target_keys(self) -> Tuple[str, ...]:
+        if self.targets in TARGET_PRESETS:
+            return TARGET_PRESETS[self.targets]
+        return tuple(t.strip() for t in self.targets.split(","))
 
 
 def import_peft_dir(path: str, n_layers: int) -> Tuple[Dict[str, Dict[str, np.ndarray]], AdapterConfig]:
@@ -231,14 +267,18 @@ def _unstack(tree, i: int):
     return _t(np.asarray(tree)[i])
 
 
-def from_gwkit_numpy(encoder=None, adapters=None, head=None, qadapter=None) -> Dict[str, Any]:
+def from_gwkit_numpy(encoder=None, adapters=None, head=None, qadapter=None,
+                     **others) -> Dict[str, Any]:
     """gwkit parameter trees (numpy leaves) -> the port's parameters.
 
     The encoder's stacked ``layers`` (leading n_layers axis, for gwkit's
     ``lax.scan``) become a Python list of per-layer dicts; stacked adapters
     become a per-layer list of {proj: {'a', 'b', 'm', 'scaling'}} with
-    ``scaling`` a Python float. Everything is float32 on the CPU;
-    ``gwkit_torch.train.tasks.build_mlgwsc`` moves it to its device."""
+    ``scaling`` a 0-d tensor (gwkit trains it: it is a leaf of the
+    adapters). The head, the Q-adapter and any other named tree (e.g. the
+    pretrainer's ``proj``) keep their structure. Everything is float32 on
+    the CPU; ``gwkit_torch.train.tasks.build_mlgwsc`` moves it to its
+    device. :func:`to_gwkit_numpy` is the inverse."""
     out: Dict[str, Any] = {}
     if encoder is not None:
         n_layers = int(np.shape(encoder["layers"]["q"]["w"])[0])
@@ -251,17 +291,45 @@ def from_gwkit_numpy(encoder=None, adapters=None, head=None, qadapter=None) -> D
         }
     if adapters is not None:
         n_layers = int(np.shape(next(iter(adapters.values()))["a"])[0])
-        layers = []
-        for i in range(n_layers):
-            per = {}
-            for proj, entry in adapters.items():
-                e = {k: _t(np.asarray(v)[i]) for k, v in entry.items() if k != "scaling"}
-                e["scaling"] = float(np.asarray(entry.get("scaling", np.ones(n_layers)))[i])
-                per[proj] = e
-            layers.append(per)
-        out["adapters"] = layers
-    if head is not None:
-        out["head"] = _tensors(head)
-    if qadapter is not None:
-        out["qadapter"] = _tensors(qadapter)
+        ones = np.ones(n_layers, np.float32)
+        out["adapters"] = [{proj: {**{k: _t(np.asarray(v)[i]) for k, v in entry.items()},
+                                   "scaling": _t(np.asarray(entry.get("scaling", ones))[i])}
+                            for proj, entry in adapters.items()} for i in range(n_layers)]
+    for name, tree in dict(head=head, qadapter=qadapter, **others).items():
+        if tree is not None:
+            out[name] = _tensors(tree)
+    return out
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().float().cpu().numpy()
+    return np.asarray(tree, np.float32)
+
+
+def _stack(items: Sequence[Any]):
+    """A list of same-structured trees -> one tree with a leading axis."""
+    if isinstance(items[0], dict):
+        return {k: _stack([it[k] for it in items]) for k in items[0]}
+    return np.stack([_numpy(it) for it in items])
+
+
+def to_gwkit_numpy(encoder=None, adapters=None, **others) -> Dict[str, Any]:
+    """The port's parameters -> gwkit's trees (float32 numpy leaves), the
+    inverse of :func:`from_gwkit_numpy`: per-layer lists are stacked on a
+    leading n_layers axis (``scaling`` becomes an (L,) vector); the head,
+    the Q-adapter and other named trees keep their structure."""
+    out: Dict[str, Any] = {}
+    if encoder is not None:
+        out["encoder"] = {**{k: _numpy(encoder[k]) for k in ("conv1", "conv2", "pos", "ln_post")},
+                          "layers": _stack(encoder["layers"])}
+    if adapters is not None:
+        out["adapters"] = _stack(adapters)
+    for name, tree in others.items():
+        if tree is not None:
+            out[name] = _numpy(tree)
     return out

@@ -1,9 +1,10 @@
 """Task heads (counterpart of ``gwkit/models/heads.py``): the ReLU MLP head
-used by the MLGWSC-1 search (``gwwhisper`` widths)."""
+used by the MLGWSC-1 task (``gwwhisper`` widths), its init and its dropout."""
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from gwkit_torch.io import Leaf
@@ -15,6 +16,7 @@ HEAD_WIDTHS = {
     "gwwhisper": (512, 256, 128, 64),
     "baseline": (1024, 512, 256),
 }
+HEAD_DROPOUT = {"glitch": 0.3}
 
 
 def mlp_head_shapes(d_in: int, widths: Sequence[int], num_classes: int) -> List[dict]:
@@ -23,11 +25,32 @@ def mlp_head_shapes(d_in: int, widths: Sequence[int], num_classes: int) -> List[
     return [{"w": Leaf((a, b)), "b": Leaf((b,))} for a, b in zip(dims[:-1], dims[1:])]
 
 
-def mlp_head_apply(params: List[dict], x: torch.Tensor, *, softmax: bool = False) -> torch.Tensor:
-    """ReLU MLP (inference: no dropout) with an optional final softmax."""
+def linear_init(d_in: int, d_out: int, generator: torch.Generator, bias: bool = True) -> dict:
+    """torch nn.Linear's default init, U(+-1/sqrt(d_in)), in gwkit's
+    right-multiplied layout, drawn from ``generator``."""
+    bound = 1.0 / np.sqrt(d_in)
+    u = lambda *shape: (torch.rand(shape, generator=generator) * 2 - 1) * bound
+    return {"w": u(d_in, d_out), **({"b": u(d_out)} if bias else {})}
+
+
+def init_mlp_head(d_in: int, widths: Sequence[int], num_classes: int,
+                  generator: torch.Generator) -> List[dict]:
+    dims = [d_in, *widths, num_classes]
+    return [linear_init(a, b, generator) for a, b in zip(dims[:-1], dims[1:])]
+
+
+def mlp_head_apply(params: List[dict], x: torch.Tensor, *, dropout_rate: float = 0.0,
+                   generator: Optional[torch.Generator] = None,
+                   softmax: bool = False) -> torch.Tensor:
+    """ReLU MLP with optional dropout after each hidden ReLU (the glitch
+    head's placement) and an optional final softmax. ``generator=None`` is
+    inference mode: no dropout."""
     n = len(params)
     for i, p in enumerate(params):
         x = x @ p["w"] + p["b"]
         if i < n - 1:
             x = torch.relu(x)
+            if dropout_rate > 0.0 and generator is not None:
+                keep = torch.rand(x.shape, generator=generator).to(x.device) < 1.0 - dropout_rate
+                x = torch.where(keep, x / (1.0 - dropout_rate), torch.zeros_like(x))
     return torch.softmax(x, dim=-1) if softmax else x

@@ -45,6 +45,21 @@ def param_shapes(cfg: QAdapterConfig) -> dict:
     }
 
 
+def init_qadapter(cfg: QAdapterConfig, generator: torch.Generator) -> dict:
+    """gwkit's init (conv weights and biases U(+-1/sqrt(fan_in)), unit scale
+    and FiLM gain, zero shifts), drawn from ``generator``."""
+    def conv(ci, co, k):
+        bound = 1.0 / np.sqrt(ci * k * k)
+        u = lambda *shape: (torch.rand(shape, generator=generator) * 2 - 1) * bound
+        return {"w": u(k, k, ci, co), "b": u(co)}
+
+    c1, c2, c3 = cfg.channels
+    return {"conv1": conv(1, c1, 3), "conv2": conv(c1, c2, 3), "conv3": conv(c2, c3, 3),
+            "conv4": conv(c3, 1, 1),
+            "scale": torch.ones(1), "bias": torch.zeros(1),
+            "film_gamma": torch.ones(cfg.n_detectors), "film_beta": torch.zeros(cfg.n_detectors)}
+
+
 @functools.lru_cache(maxsize=8)
 def _adaptive_pool_matrix(n_in: int, n_out: int) -> np.ndarray:
     """(n_out, n_in) matrix implementing torch adaptive_avg_pool1d semantics."""

@@ -12,6 +12,11 @@ Parameters keep gwkit's layout (linear ``w`` (d_in, d_out), conv ``w``
 a Python loop. With ``cfg.fused_block`` each layer runs the CUDA kernel chain
 of :mod:`gwkit_torch.ops.fused_block` (its plain versions on the CPU);
 otherwise the unfused ``_block`` math, gwkit's default path.
+
+Two entry points: :class:`WhisperEncoder` prepares the weights once and
+runs without gradients (the search); :func:`encoder_apply` takes the
+parameters and adapters on every call and is differentiable (training),
+with each fused layer a :class:`~gwkit_torch.ops.fused_block.FusedBlock`.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import torch.nn.functional as F
 from gwkit_torch.device import no_tf32_convs
 from gwkit_torch.io import Leaf, tree_to
 from gwkit_torch.ops.dora import dora_linear
-from gwkit_torch.ops.fused_block import FusedLayer, fold_layer, fused_layer_apply
+from gwkit_torch.ops.fused_block import (FusedLayer, fold_layer, fused_encoder_block,
+                                         fused_layer_apply)
 from gwkit_torch.ops.fused_mlp import _gelu
 
 
@@ -158,6 +164,21 @@ def _conv1d(x: torch.Tensor, p: dict, stride: int) -> torch.Tensor:
         return F.conv1d(x, p["w"].permute(2, 1, 0), p["b"], stride=stride, padding=1)
 
 
+def _encode(cfg: WhisperConfig, params: dict, mel: torch.Tensor, layers: List, run_layer) -> torch.Tensor:
+    """Stem, positions, ``run_layer(x, layer)`` for each of ``layers``, final
+    LayerNorm; ``params``' stem, pos and ln_post are cast to the compute
+    dtype here (a no-op when they already are)."""
+    dt = cfg.compute_dtype
+    x = mel.to(dt)
+    x = _gelu(_conv1d(x, tree_to(params["conv1"], dt), 1), cfg.gelu_approx)
+    x = _gelu(_conv1d(x, tree_to(params["conv2"], dt), 2), cfg.gelu_approx)
+    x = x.transpose(1, 2)  # (B, T', d)
+    x = (x + params["pos"][: x.shape[1]].to(dt)).contiguous()
+    for layer in layers:
+        x = run_layer(x, layer)
+    return _layer_norm(x, tree_to(params["ln_post"], dt))
+
+
 class WhisperEncoder:
     """The encoder with its weights prepared once for ``cfg``: cast to the
     compute dtype and, with ``cfg.fused_block``, folded for the kernel chain
@@ -166,9 +187,7 @@ class WhisperEncoder:
     def __init__(self, cfg: WhisperConfig, params: dict, adapters: Optional[List[dict]] = None):
         dt = cfg.compute_dtype
         self.cfg = cfg
-        self.stem = {name: tree_to(params[name], dt) for name in ("conv1", "conv2")}
-        self.pos = params["pos"].to(dt)
-        self.ln_post = tree_to(params["ln_post"], dt)
+        self.params = {name: tree_to(params[name], dt) for name in ("conv1", "conv2", "pos", "ln_post")}
         ads = adapters if adapters is not None else [None] * len(params["layers"])
         if cfg.fused_block:
             self.layers: List = [fold_layer(p, a, cfg.n_heads, dt) for p, a in zip(params["layers"], ads)]
@@ -176,25 +195,32 @@ class WhisperEncoder:
             self.layers = [(tree_to(p, dt), tree_to(a, dt) if a else None)
                            for p, a in zip(params["layers"], ads)]
 
+    def _layer(self, x: torch.Tensor, layer) -> torch.Tensor:
+        if isinstance(layer, FusedLayer):
+            return fused_layer_apply(x, layer, approx=self.cfg.gelu_approx)
+        return _block(x, layer[0], self.cfg, layer[1])
+
     @torch.no_grad()
     def __call__(self, mel: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        x = mel.to(cfg.compute_dtype)
-        x = _gelu(_conv1d(x, self.stem["conv1"], 1), cfg.gelu_approx)
-        x = _gelu(_conv1d(x, self.stem["conv2"], 2), cfg.gelu_approx)
-        x = x.transpose(1, 2)  # (B, T', d)
-        x = (x + self.pos[: x.shape[1]]).contiguous()
-        for layer in self.layers:
-            if isinstance(layer, FusedLayer):
-                x = fused_layer_apply(x, layer, approx=cfg.gelu_approx)
-            else:
-                x = _block(x, layer[0], cfg, layer[1])
-        return _layer_norm(x, self.ln_post)
+        return _encode(self.cfg, self.params, mel, self.layers, self._layer)
 
 
 def encoder_apply(cfg: WhisperConfig, params: dict, mel: torch.Tensor,
                   adapters: Optional[List[dict]] = None) -> torch.Tensor:
-    """Whisper encoder forward: mel (B, n_mels, T) -> (B, T/2, d_model).
-    Prepares the weights on every call; long-lived callers keep a
-    :class:`WhisperEncoder`."""
-    return WhisperEncoder(cfg, params, adapters)(mel)
+    """Whisper encoder forward, differentiable in the parameters and the
+    per-layer ``adapters``: mel (B, n_mels, T) -> (B, T/2, d_model).
+
+    Everything is cast to the compute dtype on every call, as gwkit's
+    ``encoder_apply`` casts it (so gradients reach the f32 leaves); with
+    ``cfg.fused_block`` each layer folds the current adapters and runs on
+    the kernel chain. Search callers keep a :class:`WhisperEncoder`."""
+    dt = cfg.compute_dtype
+
+    def run_layer(x, layer):
+        p, a = tree_to(layer[0], dt), (tree_to(layer[1], dt) if layer[1] else None)
+        if cfg.fused_block:
+            return fused_encoder_block(x, p, cfg.n_heads, a, approx=cfg.gelu_approx)
+        return _block(x, p, cfg, a)
+
+    ads = adapters if adapters is not None else [None] * len(params["layers"])
+    return _encode(cfg, params, mel, list(zip(params["layers"], ads)), run_layer)

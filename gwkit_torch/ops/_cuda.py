@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("attention", "ln_gemm", "fused_mlp")
+SOURCES = ("attention", "attention_bwd", "ln_gemm", "fused_mlp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,7 +39,8 @@ PLAIN_CALLS: Dict[str, int] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "attention": ("gw_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "attention": ("gw_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "attention_bwd": ("gw_attention_bwd", [_P] * 8 + [_I] * 7 + [_P]),
     "ln_gemm": ("gw_ln_gemm", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "fused_mlp": ("gw_fused_mlp", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }

@@ -1,20 +1,30 @@
-"""Self-attention for the Whisper encoder (counterpart of ``gwkit/ops/attention.py``).
+"""Self-attention for the Whisper encoder, forward and backward (counterpart
+of ``gwkit/ops/attention.py``).
 
-``flash_attention`` runs kernel A (``csrc/attention.cu``) on CUDA tensors:
-scores in f32, keys at or beyond T masked, the exact row max (two passes over
-the key tiles), p = exp(s - m) in the compute type, and the output divided by
-the f32 denominator. On CPU tensors it runs ``reference_attention``, the
-plain PyTorch version. The TPU kernel it replaces is
-``gwkit/ops/attention.py::_attn_kernel``; kernel A is also the attention
-stage of the fused encoder block (``gwkit_torch.ops.fused_block``).
+``flash_attention`` is differentiable (:class:`FlashAttention`, the
+counterpart of gwkit's ``_flash_vjp``). On CUDA tensors its forward runs
+kernel A (``csrc/attention.cu``) under the contract of gwkit's K1
+(``_attn_kernel``): scores in f32, keys at or beyond T masked, the exact
+row max, p = exp(s - m) / sum in f32, p rounded to v's dtype, then p . V
+accumulated in f32. Its backward runs kernel D (``csrc/attention_bwd.cu``),
+the port of gwkit's K5 (``_attn_bwd_kernel``). On CPU tensors both take
+their plain PyTorch versions, ``reference_attention`` and
+``reference_attention_bwd``.
+
+``attention_from_qkv`` is kernel A as the attention stage of the fused
+encoder block (``gwkit_torch.ops.fused_block``), under K3's contract: p =
+exp(round(s - m)) in the compute type and the output divided by the f32
+denominator. In f32 the two contracts agree to rounding.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
 from gwkit_torch.ops import _cuda
 
-HEAD_DIM = 64  # the kernel's head width (every Whisper size)
+HEAD_DIM = 64  # the kernels' head width (every Whisper size)
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -26,42 +36,134 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def _launch(lib, stream: int, q, k, v, out, B: int, T: int, H: int, ld_in: int, ld_out: int) -> None:
-    """Launch kernel A on row-strided q/k/v views (rows of ``ld_in`` elements)."""
-    dtype = _cuda.DTYPE_CODES[q.dtype]
-    err = lib.gw_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                           B, T, H, ld_in, ld_out, dtype, stream)
-    _cuda.check(err, "attention")
-    _cuda.LAUNCHES["attention"] += 1
+def reference_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of kernel D, gwkit's K5 step by step on (B, T, H, hd):
+    p = softmax(q k^T) in f32 and p_lo = p in v's dtype; dV = p_lo^T dO;
+    dP = dO V^T; o = p_lo V recomputed in f32; D = rowsum(dO * o);
+    dS = p * (dP - D) in q's dtype; dQ = dS K; dK = dS^T Q. Every product
+    accumulates in f32; dq, dk, dv come back in q's dtype."""
+    _cuda.count_plain("attention_bwd")
+    f = lambda t: t.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", f(q), f(k))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    p_lo = f(p.to(v.dtype))
+    do32 = f(do.to(v.dtype))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_lo, do32)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, f(v))
+    o = torch.einsum("bhqk,bkhd->bqhd", p_lo, f(v))
+    d = (f(do) * o).sum(dim=-1).permute(0, 2, 1).unsqueeze(-1)  # (B, H, T, 1)
+    ds = f((p * (dp - d)).to(q.dtype))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, f(k))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, f(q))
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _check(name: str, t: torch.Tensor) -> None:
     if t.dtype not in _cuda.DTYPE_CODES:
         raise TypeError(f"{name}: dtype {t.dtype} (kernel takes float32 or bfloat16)")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B, T, H, 64) pre-scaled q, k, v -> (B, T, H, 64) attention output."""
+def _row_stride(t: torch.Tensor) -> Optional[int]:
+    """ld if the (B, T, H, 64) view ``t`` reads row t of sequence b, head h
+    at (b*T + t)*ld + h*64 (a contiguous tensor, or a column block of the
+    fused QKV projection); else None."""
+    B, T, H, hd = t.shape
+    s = t.stride()
+    if s[3] == 1 and s[2] == hd and s[0] == T * s[1] and s[1] >= H * hd and s[1] % 8 == 0:
+        return s[1]
+    return None
+
+
+def _operands(name: str, *ts: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], int]:
+    """Check q, k, v (same shape and dtype, head dim 64) and return views
+    that share one row stride (contiguous copies where they do not)."""
+    q = ts[0]
+    _cuda.require_cuda(name, *ts)
+    for t in ts:
+        _check(name, t)
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name}: q, k, v must share shape and dtype")
+    if q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"{name}: head dim {q.shape[-1]} (kernel takes {HEAD_DIM})")
+    lds = {_row_stride(t) for t in ts}
+    if len(lds) != 1 or None in lds:
+        ts = tuple(t.contiguous() for t in ts)
+        lds = {_row_stride(ts[0])}
+    _cuda.require_aligned(name, *ts)
+    return ts, lds.pop()
+
+
+def _launch(lib, stream: int, q, k, v, out, B: int, T: int, H: int, ld_in: int, ld_out: int,
+            k1: bool) -> None:
+    """Launch kernel A on row-strided q/k/v views (rows of ``ld_in`` elements);
+    ``k1`` picks K1's softmax contract, else K3's."""
+    err = lib.gw_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                           B, T, H, ld_in, ld_out, _cuda.DTYPE_CODES[q.dtype], int(k1), stream)
+    _cuda.check(err, "attention")
+    _cuda.LAUNCHES["attention"] += 1
+
+
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Kernel A under K1's contract: (B, T, H, 64) pre-scaled q, k, v -> (B, T, H, 64)."""
     if q.device.type == "cpu":
         return reference_attention(q, k, v)
-    _cuda.require_cuda("flash_attention", q, k, v)
-    for t in (q, k, v):
-        _check("flash_attention", t)
-        if t.shape != q.shape or t.dtype != q.dtype:
-            raise ValueError("flash_attention: q, k, v must share shape and dtype")
+    (q, k, v), ld = _operands("flash_attention", q, k, v)
     B, T, H, hd = q.shape
-    if hd != HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {hd} (kernel takes {HEAD_DIM})")
-    _cuda.require_aligned("flash_attention", q, k, v)
-    out = torch.empty_like(q)
-    _launch(_cuda.library("attention"), _cuda.stream_of(q), q, k, v, out, B, T, H, H * hd, H * hd)
+    out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
+    _launch(_cuda.library("attention"), _cuda.stream_of(q), q, k, v, out, B, T, H, ld, H * hd, k1=True)
     return out
 
 
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel D: (dq, dk, dv) of K1 at (q, k, v) for the output gradient
+    ``do``, all (B, T, H, 64), returned in q's dtype."""
+    if q.device.type == "cpu":
+        return reference_attention_bwd(q, k, v, do)
+    (q, k, v), ld = _operands("attention_bwd", q, k, v)
+    _cuda.require_cuda("attention_bwd", do)
+    if do.shape != q.shape:
+        raise ValueError(f"attention_bwd: do {tuple(do.shape)} != q {tuple(q.shape)}")
+    do = do.to(q.dtype).contiguous()
+    _cuda.require_aligned("attention_bwd", do)
+    B, T, H, hd = q.shape
+    dq, dk, dv = (torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device) for _ in range(3))
+    tp = -(-T // 64) * 64
+    stats = torch.empty((3, B * H, tp), dtype=torch.float32, device=q.device)  # m, l, D per row
+    lib = _cuda.library("attention_bwd")
+    err = lib.gw_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                               dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, T, H, ld, H * hd,
+                               H * hd, _cuda.DTYPE_CODES[q.dtype], _cuda.stream_of(q))
+    _cuda.check(err, "attention_bwd")
+    _cuda.LAUNCHES["attention_bwd"] += 1  # one per call; the call runs two grids (dq, then dk/dv)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """softmax(q k^T) v with kernel A (K1's contract) forward and kernel D
+    backward; saves only q, k and v, as gwkit's ``_flash_fwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return attention_fwd(q, k, v)
+
+    @staticmethod
+    def backward(ctx, do):
+        return attention_bwd(*ctx.saved_tensors, do)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, 64) pre-scaled q, k, v -> (B, T, H, 64) attention output;
+    differentiable in q, k and v."""
+    return FlashAttention.apply(q, k, v)
+
+
 def attention_from_qkv(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """Kernel A on the fused projection: (B, T, 3D) [q | k | v] -> (B, T, D).
+    """Kernel A on the fused projection, under K3's contract:
+    (B, T, 3D) [q | k | v] -> (B, T, D).
 
     q, k and v are read in place through row strides (no split, no
     transpose); the output comes back in the (B, T, D) layout the
@@ -73,11 +175,13 @@ def attention_from_qkv(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
         return reference_attention(q, k, v).reshape(B, T, D)
     _cuda.require_cuda("attention_from_qkv", qkv)
     _check("attention_from_qkv", qkv)
+    if not qkv.is_contiguous():
+        raise ValueError("attention_from_qkv: tensor must be contiguous")
     if D != n_heads * HEAD_DIM:
         raise ValueError(f"attention_from_qkv: head dim {D // n_heads} (kernel takes {HEAD_DIM})")
     _cuda.require_aligned("attention_from_qkv", qkv)
     out = torch.empty((B, T, D), dtype=qkv.dtype, device=qkv.device)
     flat = qkv.view(-1)
     _launch(_cuda.library("attention"), _cuda.stream_of(qkv), flat, flat[D:], flat[2 * D:], out,
-            B, T, n_heads, 3 * D, D)
+            B, T, n_heads, 3 * D, D, k1=False)
     return out

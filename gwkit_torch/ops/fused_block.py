@@ -19,17 +19,27 @@ model is loaded and keeps the result on the device.
 On CPU tensors each stage takes its kernel's plain version, so the chain's
 wiring is tested on the CPU against gwkit. ``_reference_block`` is gwkit's
 unfused math for the same layer.
+
+:class:`FusedBlock` makes the layer differentiable, as gwkit's
+``_fused_vjp`` (fused_block.py:474-502): the forward is the chain above,
+folded from the current parameters and adapters on every call; the backward
+recomputes ``_reference_block(..., flash=True)``, whose attention core is
+kernel A (K1's contract) forward and kernel D backward, and differentiates
+it. DoRA stays factored there, and LayerNorm, projection and MLP gradients
+are plain PyTorch (cuBLAS), as gwkit leaves them to XLA. Only x and the
+parameters are saved, so no activation of the layer outlives its forward
+(gwkit's ``remat=True``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from gwkit_torch.io import tree_to
 from gwkit_torch.ops import _cuda
-from gwkit_torch.ops.attention import attention_from_qkv
+from gwkit_torch.ops.attention import attention_from_qkv, flash_attention
 from gwkit_torch.ops.dora import dora_linear, dora_row_norms
 from gwkit_torch.ops.fused_mlp import _gelu, fused_mlp_block
 from gwkit_torch.ops.fused_mlp import _ln as _ln_f32
@@ -160,23 +170,83 @@ def fused_layer_apply(x: torch.Tensor, layer: FusedLayer, approx: bool = False,
                            layer.b2, approx=approx)
 
 
+class _Slot(int):
+    """Where a tensor leaf sat in a flattened parameter tree."""
+
+
+def _split(tree, leaves: List[torch.Tensor]):
+    """Replace every tensor of a tree of dicts by a :class:`_Slot` into ``leaves``."""
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return _Slot(len(leaves) - 1)
+    if isinstance(tree, dict):
+        return {k: _split(v, leaves) for k, v in tree.items()}
+    return tree
+
+
+def _fill(spec, leaves):
+    if isinstance(spec, _Slot):
+        return leaves[spec]
+    if isinstance(spec, dict):
+        return {k: _fill(v, leaves) for k, v in spec.items()}
+    if isinstance(spec, tuple):
+        return tuple(_fill(v, leaves) for v in spec)
+    return spec
+
+
+class FusedBlock(torch.autograd.Function):
+    """The layer on the kernel chain, differentiable in x and in every
+    tensor of the parameters and adapters (``scaling`` included)."""
+
+    @staticmethod
+    def forward(ctx, x, n_heads, approx, spec, *leaves):
+        ctx.save_for_backward(x, *leaves)
+        ctx.layer = (n_heads, approx, spec)
+        p, ad = _fill(spec, leaves)
+        return fused_layer_apply(x, fold_layer(p, ad, n_heads, x.dtype), approx)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *leaves = ctx.saved_tensors
+        n_heads, approx, spec = ctx.layer
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            xs = x.detach().requires_grad_(need[0])
+            ls = [t.detach().requires_grad_(n) for t, n in zip(leaves, need[4:])]
+            p, ad = _fill(spec, ls)
+            out = _reference_block(xs, p, ad, n_heads, approx, flash=True)
+            wrt = [t for t in [xs, *ls] if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True) if wrt else ())
+        dx = next(grads) if xs.requires_grad else None
+        return (dx, None, None, None, *(next(grads) if t.requires_grad else None for t in ls))
+
+
 def fused_encoder_block(x: torch.Tensor, p: dict, n_heads: int, adapters: Optional[dict] = None,
                         approx: bool = False, skip_mlp: bool = False) -> torch.Tensor:
     """One whole pre-LN transformer block: x (B, T, D) -> (B, T, D).
 
     ``p``: per-layer params (attn_ln, q, k, v, o, mlp_ln, fc1, fc2), gwkit
     layout; ``adapters``: optional DoRA/LoRA dict keyed by projection. Folds
-    the weights on every call; the search path folds once with
-    :func:`fold_layer` and calls :func:`fused_layer_apply`."""
-    return fused_layer_apply(x, fold_layer(p, adapters, n_heads, x.dtype), approx, skip_mlp)
+    the weights on every call and is differentiable (:class:`FusedBlock`);
+    the search path folds once with :func:`fold_layer` and calls
+    :func:`fused_layer_apply`. ``skip_mlp`` (the counterpart of K4) is
+    forward only."""
+    if skip_mlp:
+        return fused_layer_apply(x, fold_layer(p, adapters, n_heads, x.dtype), approx, skip_mlp)
+    leaves: List[torch.Tensor] = []
+    spec = (_split(p, leaves), _split(adapters, leaves))
+    return FusedBlock.apply(x, n_heads, approx, spec, *leaves)
 
 
 def _reference_block(x: torch.Tensor, p: dict, adapters: Optional[dict], n_heads: int,
-                     approx: bool) -> torch.Tensor:
+                     approx: bool, flash: bool = False) -> torch.Tensor:
     """gwkit's unfused math for the same layer (``_reference_block``,
     fused_block.py:320-367): DoRA applied in factored form, attention with
-    the full (B, H, T, T) probability tensor."""
-    _cuda.count_plain("block")
+    the full (B, H, T, T) probability tensor, or with ``flash=True`` through
+    :func:`~gwkit_torch.ops.attention.flash_attention` (kernel A forward and
+    kernel D backward on the card; no T x T tensor reaches device memory)."""
+    if not flash:
+        _cuda.count_plain("block")
     dt = x.dtype
     ad = tree_to(adapters or {}, dt)
     B, T, D = x.shape
@@ -193,9 +263,12 @@ def _reference_block(x: torch.Tensor, p: dict, adapters: Optional[dict], n_heads
     q = (prj("q", h) * hd ** -0.5).reshape(B, T, n_heads, hd)
     k = prj("k", h).reshape(B, T, n_heads, hd)
     v = prj("v", h).reshape(B, T, n_heads, hd)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    probs = torch.softmax(scores, dim=-1).to(dt)
-    o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
+    if flash:
+        o = flash_attention(q, k, v).reshape(B, T, D)
+    else:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
     x1 = x + prj("o", o)
     h2 = _ln_f32(x1, p["mlp_ln"]["g"], p["mlp_ln"]["b"])
     h2 = _gelu(prj("fc1", h2), approx)

@@ -93,6 +93,84 @@ def test_block_chain_adversarial_score_scales(setup, scale):
     np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-6 * max(scale, 1.0))
 
 
+def _requiring_grad(tree):
+    return {k: _requiring_grad(v) for k, v in tree.items()} if isinstance(tree, dict) else \
+        tree.clone().requires_grad_()
+
+
+def _grads(tree):
+    return {k: _grads(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.grad.numpy()
+
+
+@pytest.mark.parametrize("with_adapters", [False, True])
+def test_fused_block_gradients_match_gwkit(setup, with_adapters):
+    """FusedBlock's backward (the recompute through flash attention, whose
+    backward is K5's plain version on the CPU) against jax.grad through
+    gwkit's fused_encoder_block (interpret mode): x, every layer parameter
+    and every adapter leaf (a, b, m, scaling); rtol 1e-4, atol 1e-5 as
+    tests/test_fused_block.py."""
+    gw_p, gw_ad, p, ad = setup
+    gw_ad = gw_ad if with_adapters else None
+    x = np.random.default_rng(3).normal(size=(3, 50, 64)).astype(np.float32)
+    gx, gp, ga = jax.grad(
+        lambda xx, pp, aa: jnp.sum(gw_fused_block(xx, pp, CFG.n_heads, aa, interpret=True) ** 2),
+        argnums=(0, 1, 2))(jnp.asarray(x), gw_p, gw_ad)
+    tx = torch.from_numpy(x).requires_grad_()
+    tp = _requiring_grad(p)
+    ta = _requiring_grad(ad) if with_adapters else None
+    (fb.fused_encoder_block(tx, tp, CFG.n_heads, ta) ** 2).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), rtol=1e-4, atol=1e-5)
+    pairs = [(_grads(tp), gp)] + ([(_grads(ta), ga)] if with_adapters else [])
+    for got, want in pairs:
+        want = jax.tree.map(np.asarray, want)
+        assert jax.tree.structure(got) == jax.tree.structure(want)
+        for g, w in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+    if with_adapters:
+        assert all(np.abs(_grads(ta)[k]["scaling"]) > 0 for k in "qkvo")  # scaling is trained
+
+
+@pytest.mark.parametrize("dora", [False, True])
+def test_dora_linear_gradients_match_gwkit(dora):
+    """dora_linear's gradients in x, W0, bias, a, b, m and scaling; the
+    column norm is a constant under differentiation in both packages."""
+    from gwkit.ops.dora import dora_linear as gw_dora
+    from gwkit_torch.ops.dora import dora_linear
+
+    rng = np.random.default_rng(4)
+    arrs = dict(x=rng.normal(size=(5, 16)), w0=rng.normal(size=(16, 12)) / 4, bias=rng.normal(size=12),
+                a=rng.normal(size=(16, 3)) / 4, b=rng.normal(size=(3, 12)) / 10, m=1 + rng.random(12),
+                scaling=np.array(2.5))
+    arrs = {k: np.asarray(v, np.float32) for k, v in arrs.items()}
+    if not dora:
+        del arrs["m"]
+    w = rng.normal(size=(5, 12)).astype(np.float32)
+
+    def gw_loss(t):
+        ad = {k: t[k] for k in ("a", "b", "m", "scaling") if k in t}
+        return jnp.sum(gw_dora(t["x"], t["w0"], t["bias"], ad) * w)
+
+    want = jax.grad(gw_loss)({k: jnp.asarray(v) for k, v in arrs.items()})
+    t = {k: torch.from_numpy(v).requires_grad_() for k, v in arrs.items()}
+    ad = {k: t[k] for k in ("a", "b", "m", "scaling") if k in t}
+    (dora_linear(t["x"], t["w0"], t["bias"], ad) * torch.from_numpy(w)).sum().backward()
+    for k in arrs:
+        np.testing.assert_allclose(t[k].grad.numpy(), np.asarray(want[k]), rtol=1e-4, atol=1e-5)
+
+
+def test_fused_block_backward_recomputes_through_flash_attention(setup):
+    """The backward runs the attention core's own backward (kernel D's plain
+    version here) and never the plain layer's full-probability attention."""
+    from gwkit_torch.ops import _cuda
+
+    _, _, p, ad = setup
+    x = torch.from_numpy(_x(40, seed=2)).requires_grad_()
+    out = fb.fused_encoder_block(x, p, CFG.n_heads, ad)
+    _cuda.reset_counts()
+    out.sum().backward()
+    assert _cuda.PLAIN_CALLS.get("attention_bwd") == 1 and "block" not in _cuda.PLAIN_CALLS
+
+
 def test_fold_layer_folds_dora_and_q_scale(setup):
     """fold_layer's dense (D, 3D) weight reproduces the three DoRA projections,
     with 1/sqrt(hd) in the q columns."""

@@ -77,6 +77,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         DeviceSlicer(seg)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_mlgwsc(WhisperConfig(), QAdapterConfig(), {})
+    from gwkit_torch.cli import train_mlgwsc
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_mlgwsc.main(["-d", str(tmp_path), "-o", str(tmp_path / "run")])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -90,7 +94,7 @@ def test_kernel_wrappers_refuse_mixed_devices():
     x = torch.randn(4, 32)
     y = ln_gemm(x, torch.randn(32, 8), torch.zeros(8))
     assert y.shape == (4, 8)
-    assert _cuda.LAUNCHES == {"attention": 0, "ln_gemm": 0, "fused_mlp": 0}
+    assert _cuda.LAUNCHES == {"attention": 0, "attention_bwd": 0, "ln_gemm": 0, "fused_mlp": 0}
     assert _cuda.PLAIN_CALLS == {"ln_gemm": 1}
     with pytest.raises(ValueError, match="CUDA"):
         _cuda.require_cuda("ln_gemm", x)
