@@ -15,11 +15,20 @@ Phases, each printing one JSON line:
              (kernel D) at the training shapes (128 sequences x 6 heads x
              T = 256) and at T = 1500; the layer's gradients through
              FusedBlock (kernels) against autograd of the plain layer;
+             kernel E (int8) in each of its modes at the main shapes (with
+             zero rows and exact .5 ties), the int8 layer in gwkit's three
+             regimes against the same chain on plain versions, int8 against
+             the unquantized layer, with times beside torch._int_mm's bare
+             int8 products;
   4 search   the MLGWSC-1 search on the capstone weights at (80, 512): a
              300 s dual-detector segment (blocked whitening), batch 128,
              bf16 on the kernels; launch counters prove every encoder layer
              ran on them; the first 4 batches are then rescored in f32 on
              the plain path and compared;
+  4b int8    the same search with int8 projections (kernel E), launch
+             counters, throughput, its scores against the f32 plain int8
+             path and against phase 4's bf16 scores; then a ScoringServer on
+             the int8 task answers ping, a missing file and shutdown;
   5 train    the capstone recipe through Trainer.fit for 2 short epochs
              (the capstone encoder frozen, fresh adapters, head and
              Q-adapter, batch 64, bf16 on the kernels, Adam 3e-4, clip 100)
@@ -28,9 +37,12 @@ Phases, each printing one JSON line:
              of three 8-step windows), and the device time of a step by
              kernel group;
   6 kernels  one line per the kernel table (times, bound, launches);
+             kernel E's ms, plain ms, bound and int_mm_ms are the sums of
+             its four launches a layer;
 then the card's name and power limit, and the result line last.
 Fails (non-zero exit, no result line) on any disagreement, and without CUDA.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -38,6 +50,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -47,17 +60,20 @@ from gwkit_torch.ops import _cuda
 from gwkit_torch.ops import attention as A
 from gwkit_torch.ops import fused_block as FB
 from gwkit_torch.ops import fused_mlp as FM
+from gwkit_torch.ops import int8_gemm as IG
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (H100 SXM data sheet)
 H100_F32_FLOPS = 67e12    # f32 outside the tensor cores: the f32 kernels use FMA, not TF32
+H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak
 H100_BYTES = 3.35e12      # HBM3
 CAPSTONE = "artifacts/capstone_r5"
-KERNELS = ("attention", "attention_bwd", "ln_gemm", "fused_mlp")
+KERNELS = ("attention", "attention_bwd", "ln_gemm", "fused_mlp", "int8_gemm")
 SOURCES = {name: f"gwkit_torch/csrc/{name}.cu" for name in KERNELS}
 REPLACES = {"attention": "gwkit/ops/attention.py:30", "attention_bwd": "gwkit/ops/attention.py:93",
-            "ln_gemm": "gwkit/ops/fused_block.py:112", "fused_mlp": "gwkit/ops/fused_mlp.py:31"}
+            "ln_gemm": "gwkit/ops/fused_block.py:112", "fused_mlp": "gwkit/ops/fused_mlp.py:31",
+            "int8_gemm": "gwkit/ops/fused_block.py:99"}
 # __global__ grids one counted launch runs: kernel D is dq_kernel, then dkdv_kernel
-GRIDS_PER_LAUNCH = {"attention": 1, "attention_bwd": 2, "ln_gemm": 1, "fused_mlp": 1}
+GRIDS_PER_LAUNCH = {"attention": 1, "attention_bwd": 2, "ln_gemm": 1, "fused_mlp": 1, "int8_gemm": 1}
 # tolerances, as max |kernel - plain| <= tol * max |plain| and
 # mean |kernel - plain| <= tol * mean |plain| (the mean term holds small
 # outputs, e.g. attention over 1500 keys at score scale 1e-3, to their size):
@@ -68,6 +84,19 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # bf16 parity report at (80, 512) read max |delta| 0.1469 = 0.71% of the span
 # and mean |delta| 0.0115 = 0.056% (docs/results/bf16_parity.md)
 SEARCH_BF16_TOL = {"max": 0.0075, "mean": 0.0015}
+# int8 vs bf16 search scores, as fractions of the f32 score span: gwkit's int8
+# report on the trained capstone at (80, 512) read max |delta| 0.56% of the
+# span and mean 0.053% (docs/results/int8_parity.md), on its validation set;
+# these windows are synthetic noise, hence the margin
+SEARCH_INT8_TOL = {"max": 0.015, "mean": 0.0015}
+# int8 checks: a value at a rounding tie may round to the other quantum when
+# the two sides' LayerNorm or attention differ in the last bit, and its row
+# then differs by about one quantum everywhere. Such rows are allowed beside
+# the tolerance (the mean error stays held to it), within 1e-2 of the largest
+# value, and counted (flipped_rows): for one projection at most 1 row in
+# 100; for a whole layer any number, since a flipped quantum of k or v
+# reaches every row of its sequence through attention.
+FLIP_ROWS, FLIP_BOUND = 0.01, 1e-2
 
 
 def emit(phase, **kw):
@@ -88,8 +117,8 @@ def median_ms(fn, reps=15):
     return statistics.median(times)
 
 
-def bound_ms(n_bytes, flops, dtype):
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+def bound_ms(n_bytes, flops, dtype, peak=None):
+    peak = peak or (H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS)
     t_bytes, t_ops = n_bytes / H100_BYTES * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -98,14 +127,23 @@ class Checks:
     def __init__(self):
         self.failed = []
 
-    def compare(self, name, got, want, tol, **extra):
+    def compare(self, name, got, want, tol, flip_rows=0.0, **extra):
+        """max and mean |got - want| within tol of want's; with
+        ``flip_rows``, that share of rows with a flipped quantum is allowed
+        beside the max (FLIP_ROWS)."""
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         ref, mean_ref = float(want.float().abs().max()), float(want.float().abs().mean())
         err, mean_err = float(diff.max()), float(diff.mean())
         rel = float((diff / want.float().abs().clamp_min(1e-6)).median())
-        ok = (bool(torch.isfinite(got.float()).all()) and err <= tol * ref
-              and mean_err <= tol * mean_ref)
+        ok = bool(torch.isfinite(got.float()).all()) and mean_err <= tol * mean_ref
+        if flip_rows:  # a row is the last dimension (each element of a vector)
+            rows = diff.reshape(-1, diff.shape[-1] if diff.dim() > 1 else 1).amax(dim=-1) > tol * ref
+            n_flip = int(rows.sum())
+            extra["flipped_rows"] = n_flip
+            ok = ok and (n_flip == 0 or n_flip <= max(1, flip_rows * rows.numel()) and err <= FLIP_BOUND * ref)
+        else:
+            ok = ok and err <= tol * ref
         emit("parity", check=name, max_abs_err=err, mean_abs_err=mean_err, median_rel_err=rel,
              max_abs_ref=ref, mean_abs_ref=mean_ref, tol={"max": tol * ref, "mean": tol * mean_ref},
              ok=ok, **extra)
@@ -340,6 +378,144 @@ def attention_bwd_phase(checks):
     return record
 
 
+@contextlib.contextmanager
+def plain_stages():
+    """Every stage of the fused layer on its plain PyTorch version, on the
+    card: the layer's function computed without the kernels (the reference
+    of the int8 layer checks and of the int8 search's f32 scores)."""
+    def attention_from_qkv(qkv, n_heads):
+        B, T, D3 = qkv.shape
+        q, k, v = (t.reshape(B, T, n_heads, -1) for t in qkv.split(D3 // 3, dim=-1))
+        return A.reference_attention(q, k, v).reshape(B, T, D3 // 3)
+
+    plain = {"int8_gemm": IG._int8_gemm_reference, "ln_gemm": FB._ln_gemm_reference,
+             "attention_from_qkv": attention_from_qkv, "flash_attention": A.reference_attention,
+             "fused_mlp_block": FM._unfused}
+    saved = {name: getattr(FB, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(FB, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(FB, name, fn)
+
+
+def _special_rows(t):
+    """Rows 0-63 all zero, rows 64-127 exact .5 ties: the largest value is
+    127 / 16, so the row scale is 1/16 and every other value / scale is
+    k + 0.5 (exact in f32 and bf16)."""
+    K = t.shape[1]
+    ties = torch.from_numpy(((np.arange(K) % 121) - 60 + 0.5) / 16).float()
+    ties[0] = 127 / 16
+    t[:64] = 0
+    t[64:128] = ties.to(t.dtype).to(t.device)
+    return t
+
+
+def _int_mm_ms(M, K, N):
+    """torch._int_mm (cuBLASLt int8 -> int32) at the shapes: the bare int8
+    products, a yardstick only (no LN, quantization or epilogue)."""
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda")
+    b = torch.randint(-127, 128, (K, N), dtype=torch.int8, device="cuda")
+    for operand in (b, b.t().contiguous().t()):
+        try:
+            torch._int_mm(a, operand)
+        except RuntimeError as exc:
+            err = str(exc).splitlines()[0]
+            continue
+        return median_ms(lambda: torch._int_mm(a, operand)), None
+    return None, err
+
+
+def int8_phase(checks):
+    """Kernel E against its plain version in each mode at the main shapes,
+    f32 and bf16, with times; the int8 layer in gwkit's three regimes
+    against the same chain on plain versions; int8 against the unquantized
+    layer. Returns the bf16 main-path record of kernel E."""
+    rng = np.random.default_rng(3)
+    D, F, H, Bs, T = 384, 1536, 6, 256, 256
+    M = Bs * T
+    record = None
+    for dt in (torch.float32, torch.bfloat16):
+        tol = TOL[dt]
+        tag = "f32" if dt == torch.float32 else "bf16"
+        it = torch.tensor([], dtype=dt).element_size()
+        p, ad = _layer(D, F, H, rng, True)
+        layer = FB.fold_layer(p, ad, H, dt, quant=True)
+        q = layer.int8
+        normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(dt)
+        x = normal(Bs, T, D)
+        x2 = _special_rows(x.view(M, D))
+        att, act_in, x1 = _special_rows(normal(M, D)), _special_rows(normal(M, F)), normal(M, D)
+        ln1, ln2 = (layer.ln1_g, layer.ln1_b), (layer.ln2_g, layer.ln2_b)
+        modes = {  # name: (input, projection, LN, GELU, residual); per layer: qkv, o, fc1 (tanh), fc2
+            "ln1+qkv": (x2, q.qkv, ln1, None, None), "o+residual": (att, q.o, None, None, x2),
+            "ln2+fc1+gelu_tanh": (x1, q.fc1, ln2, "tanh", None), "ln2+fc1+gelu_erf": (x1, q.fc1, ln2, "erf", None),
+            "fc2+residual": (act_in, q.fc2, None, None, x1)}
+        rec = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, int_mm_ms=0.0, max_abs_err=0.0)
+        for name, (inp, proj, ln, act, res) in modes.items():
+            call = lambda: IG.int8_gemm(inp, proj, ln=ln, act=act, residual=res)
+            plain = lambda: IG._int8_gemm_reference(inp, proj, ln, act, res)
+            got, want = call(), plain()
+            err = checks.compare(f"E {name} {tag}", got, want, tol, flip_rows=FLIP_ROWS, shape=[M, proj.w.shape[1]],
+                                 special_rows_max_abs_err=float((got[:128].float() - want[:128].float()).abs().max()))
+            K, N = proj.w.shape
+            n_bytes = it * (M * K + M * N + (M * N if res is not None else 0) + (2 * K if ln else 0)) + K * N + 8 * N
+            b_ms, by = bound_ms(n_bytes, 2 * M * N * K, dt, peak=H100_INT8_OPS)
+            t = dict(ms=median_ms(call), plain_ms=median_ms(plain, 5), bound_ms=b_ms)
+            t["int_mm_ms"], int_mm_err = _int_mm_ms(M, K, N)
+            emit("timing", name="int8_gemm", mode=name, dtype=tag, bound_by=by, max_abs_err=err,
+                 int_mm_error=int_mm_err, shapes=f"{M} rows x K={K} -> N={N}", **t)
+            if name != "ln2+fc1+gelu_erf":  # the main path's four launches a layer
+                for key in ("ms", "plain_ms", "bound_ms", "int_mm_ms"):
+                    rec[key] = None if rec[key] is None or t[key] is None else rec[key] + t[key]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            del got, want
+        # the whole int8 layer (fused regime, DoRA, tanh) against the same
+        # chain on plain versions, and against the unquantized layer
+        assert FB._quant_regime(T, D, F, dt) == "fused"
+        x = normal(Bs, T, D)
+        got = FB.fused_layer_apply(x, layer, approx=True)
+        with plain_stages():
+            want = FB.fused_layer_apply(x, layer, approx=True)
+        checks.compare(f"int8 layer, fused regime, main shapes, DoRA {tag}", got, want, tol, flip_rows=1.0)
+        full_layer = FB.fold_layer(p, ad, H, dt)
+        full = FB.fused_layer_apply(x, full_layer, approx=True)
+        rel = float((got.float() - full.float()).norm() / full.float().norm())
+        emit("parity", check=f"int8 layer vs unquantized layer, relative L2 {tag}", rel_l2=rel, tol=0.03,
+             ok=rel < 0.03)
+        if not rel < 0.03:
+            checks.failed.append(f"int8 vs unquantized {tag}")
+        emit("timing", name="int8 layer", dtype=tag, shapes="main path layer (256 seq x 256 tokens)",
+             int8_layer_ms=median_ms(lambda: FB.fused_layer_apply(x, layer, approx=True)),
+             unquantized_chain_ms=median_ms(lambda: FB.fused_layer_apply(x, full_layer, approx=True)),
+             chains={"int8": "E, A, E, E, E", "unquantized": "B, A, B, C"})
+        if dt == torch.bfloat16:
+            record = dict(name="int8_gemm", dtype=tag, bound_by="bytes", library_ms=None, **rec)
+        del x, x2, att, act_in, x1, got, want, full, layer, full_layer
+        torch.cuda.empty_cache()
+
+    # the split regime (base at T = 1500, bf16) and the reference regime
+    # (tiny at T = 1500, f32), each against the same chain on plain versions
+    for (D, F, H, B, dt, regime) in ((512, 2048, 8, 16, torch.bfloat16, "split"),
+                                     (384, 1536, 6, 8, torch.float32, "reference")):
+        assert FB._quant_regime(1500, D, F, dt) == regime
+        p, ad = _layer(D, F, H, rng, True)
+        layer = FB.fold_layer(p, ad, H, dt, quant=True)
+        x = torch.from_numpy(rng.normal(size=(B, 1500, D)).astype(np.float32)).cuda().to(dt)
+        _cuda.reset_counts()
+        got = FB.fused_layer_apply(x, layer, approx=True)
+        launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        with plain_stages():
+            want = FB.fused_layer_apply(x, layer, approx=True)
+        checks.compare(f"int8 layer, {regime} regime, D={D} T=1500 {'bf16' if dt == torch.bfloat16 else 'f32'}",
+                       got, want, TOL[dt], flip_rows=1.0, launches=launches)
+        del p, ad, layer, x, got, want
+        torch.cuda.empty_cache()
+    return record
+
+
 def _flat_grads(tree):
     from gwkit_torch.io import tree_leaves
 
@@ -386,7 +562,8 @@ def layer_grad_phase(checks):
 
 def _kernel_group(name):
     low = name.lower()
-    for key in ("attention_kernel", "dq_kernel", "dkdv_kernel", "ln_gemm_kernel", "fused_mlp_kernel"):
+    for key in ("attention_kernel", "dq_kernel", "dkdv_kernel", "ln_gemm_kernel", "fused_mlp_kernel",
+                "int8_gemm_kernel"):
         if key in low:
             return key
     if "fft" in low:
@@ -466,7 +643,7 @@ def search_phase(checks, smi):
     times, stats, _ = get_clusters(res.triggers)
     n_trig = sum(len(v) for v in res.triggers.values())
     nb, nl = n_batches[0], enc.n_layers
-    expect = {"attention": nl * nb, "attention_bwd": 0, "ln_gemm": 2 * nl * nb, "fused_mlp": nl * nb}
+    expect = {"attention": nl * nb, "attention_bwd": 0, "ln_gemm": 2 * nl * nb, "fused_mlp": nl * nb, "int8_gemm": 0}
     ok = launches == expect and not plain
     emit("search", card=smi, seconds=seconds, windows=res.n_windows, batches=nb, triggers=n_trig,
          clusters=int(len(times)), threshold=threshold, wall_s=res.wall_seconds,
@@ -508,7 +685,137 @@ def search_phase(checks, smi):
          correlation=corr, tol_of_span=SEARCH_BF16_TOL, tol=tol, ok=ok_bf16)
     if not ok_bf16:
         checks.failed.append("bf16 search scores")
-    return launches
+    return dict(launches=launches, threshold=threshold, bf16_scores=bf16_scores, span=span,
+                trigger_times=_trigger_times(res.triggers))
+
+
+def _trigger_times(triggers):
+    return {t for trig in triggers.values() for t, _ in trig}
+
+
+def int8_search_phase(checks, smi, bf16):
+    """Phase 4's search with int8 projections: launches, throughput, scores
+    against the f32 plain int8 path and against phase 4's bf16 scores.
+    Returns (launches, the int8 task)."""
+    from gwkit_torch.cli.inference import load_task_from_components
+    from gwkit_torch.search.engine import score_segments
+    from gwkit_torch.search.slicer import DeviceSlicer, Segment, SlicerConfig
+    from gwkit_torch.train.tasks import build_mlgwsc
+
+    files = (f"{CAPSTONE}/run/best_lora_weights", f"{CAPSTONE}/run/best_dense_layers.npz",
+             f"{CAPSTONE}/run/best_adapter.npz")
+    t0 = time.time()
+    task = load_task_from_components(*files, pretrained_encoder=f"{CAPSTONE}/encoder_pretrained.npz",
+                                     target_shape=(80, 512), quant_int8=True)
+    load_s = time.time() - t0
+    enc = task.cfg.encoder
+    assert enc.quant_int8 and enc.fused_block and enc.compute_dtype == torch.bfloat16 and enc.gelu_approx
+
+    fs, seconds = 2048, 300.0
+    strain = (np.random.default_rng(0).normal(size=(2, int(seconds * fs))) * 1e-21).astype(np.float32)
+    seg = Segment(key="smoke", strain=strain, start_time=0.0, delta_t=1.0 / fs)
+    cfg = SlicerConfig(batch_size=128)
+    dev = torch.device("cuda")
+    n_batches = [0]
+
+    def score(windows):
+        n_batches[0] += 1
+        return task.score(windows)
+
+    warm = score_segments(score, [seg], cfg, trigger_threshold=bf16["threshold"], device=dev)
+    n_batches[0] = 0
+    _cuda.reset_counts()
+    res = score_segments(score, [seg], cfg, trigger_threshold=bf16["threshold"], device=dev)
+    launches, plain = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+    nb, nl = n_batches[0], enc.n_layers
+    expect = {"attention": nl * nb, "attention_bwd": 0, "ln_gemm": 0, "fused_mlp": 0, "int8_gemm": 4 * nl * nb}
+    ok = launches == expect and not plain
+    times = _trigger_times(res.triggers)
+    union = times | bf16["trigger_times"]
+    jaccard = len(times & bf16["trigger_times"]) / len(union) if union else 1.0
+    emit("search_int8", card=smi, seconds=seconds, windows=res.n_windows, batches=nb,
+         triggers=sum(len(v) for v in res.triggers.values()), threshold=bf16["threshold"],
+         wall_s=res.wall_seconds, strain_seconds_per_second=res.throughput_x_realtime,
+         warm_strain_seconds_per_second=warm.throughput_x_realtime, load_s=load_s, launches=launches,
+         expected_launches=expect, plain_calls=plain, ok=ok, trigger_jaccard_vs_bf16=jaccard,
+         scores_finite=bool(np.isfinite(res.all_vals).all()))
+    if not ok:
+        checks.failed.append("int8 launch counters")
+    assert res.n_windows == 3000 and len(res.all_vals) == 3000 and np.isfinite(res.all_vals).all()
+    profiled("profile_int8", lambda: score_segments(score, [seg], cfg, trigger_threshold=bf16["threshold"],
+                                                    device=dev))
+
+    batches = []
+    for windows, _, valid in DeviceSlicer(seg, cfg, device=dev).batches():
+        assert valid.all()
+        batches.append(windows)
+        if len(batches) == 4:
+            break
+    int8_scores = torch.from_numpy(res.all_vals[: 4 * 128])
+    task32 = build_mlgwsc(dataclasses.replace(enc, compute_dtype=torch.float32), task.qcfg, task.params, device=dev)
+    with torch.no_grad():
+        k32 = torch.cat([task32.score(w) for w in batches]).float().cpu()
+        with plain_stages():
+            ref = torch.cat([task32.score(w) for w in batches]).float().cpu()
+            # the int8 function's own sensitivity: the same windows, each value moved by 2e-7 relative
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            nudged = torch.cat([task32.score(w * (1 + 2e-7 * (2 * torch.randint(0, 2, w.shape, device=dev,
+                                                                                  generator=gen) - 1)))
+                                for w in batches]).float().cpu()
+    span = float(ref.max() - ref.min())
+    # f32 kernels vs f32 plain, both int8: a flipped quantum moves a score
+    # by up to about 2e-3 of the largest (tests/test_torch_quant.py, the
+    # capstone on the CPU), so the max is held at 5e-3 and the mean at 1e-3
+    err = (k32 - ref).abs()
+    ok32 = float(err.max()) <= 5e-3 * float(ref.abs().max()) and float(err.mean()) <= 1e-3 * float(ref.abs().mean())
+    emit("parity", check="int8 search scores: f32 kernels vs f32 plain int8 path (first 4 batches)",
+         max_abs_err=float(err.max()), mean_abs_err=float(err.mean()), max_abs_ref=float(ref.abs().max()),
+         mean_abs_ref=float(ref.abs().mean()), sensitivity_max_abs=float((nudged - ref).abs().max()),
+         tol={"max": 5e-3 * float(ref.abs().max()), "mean": 1e-3 * float(ref.abs().mean())}, ok=ok32)
+    if not ok32:
+        checks.failed.append("int8 f32 search scores")
+    for label, other, tol_of_span in (("bf16 int8 kernels vs f32 plain int8 path", ref, SEARCH_BF16_TOL),
+                                      ("int8 (bf16 kernels) vs phase 4's bf16 scores", bf16["bf16_scores"],
+                                       SEARCH_INT8_TOL)):
+        s = bf16["span"] if other is bf16["bf16_scores"] else span
+        d = (int8_scores - other).abs()
+        tol = {k: v * s for k, v in tol_of_span.items()}
+        ok_d = float(d.max()) <= tol["max"] and float(d.mean()) <= tol["mean"]
+        emit("parity", check=f"search scores: {label} (first 4 batches)", max_abs_err=float(d.max()),
+             mean_abs_err=float(d.mean()), f32_score_span=s, max_of_span=float(d.max()) / s,
+             mean_of_span=float(d.mean()) / s, tol_of_span=tol_of_span, tol=tol, ok=ok_d)
+        if not ok_d:
+            checks.failed.append(label)
+    del task32
+    return launches, task
+
+
+def server_phase(checks, task):
+    """A ScoringServer on the int8 task, served from a thread over a Unix
+    socket: ping, a request for a missing file, shutdown."""
+    from gwkit_torch.serve import ScoringServer, request
+
+    with tempfile.TemporaryDirectory() as td:
+        sock = os.path.join(td, "gw.sock")
+        server = ScoringServer(task, sock, batch_size=128)
+        server.bind()
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            pong = request(sock, {"cmd": "ping"}, timeout=60)
+            missing = request(sock, {"input": os.path.join(td, "missing.hdf"), "output": os.path.join(td, "o.hdf")},
+                              timeout=60)
+        finally:
+            bye = request(sock, {"cmd": "shutdown"}, timeout=60)
+        thread.join(timeout=60)
+        ok = (pong.get("ok") and pong.get("pong") and not missing.get("ok") and "no such input" in missing["error"]
+              and bye.get("bye") and not thread.is_alive() and not os.path.exists(sock))
+    emit("serve", task="int8 capstone (bf16, kernel E)", ping=pong, missing_file=missing, shutdown=bye,
+         thread_joined=not thread.is_alive(), socket_removed=True, ok=bool(ok),
+         note="scored requests read HDF5, and this machine has no h5py: tests/test_torch_serve.py scores "
+              "them on the CPU")
+    if not ok:
+        checks.failed.append("serve")
 
 
 def _chirps(n, rng, fs=2048):
@@ -615,7 +922,7 @@ def train_phase(checks, smi):
 
     nt, nv, L = counts["train"], counts["valid"], enc_cfg.n_layers
     expect = {"attention": 2 * L * nt + L * nv, "attention_bwd": L * nt, "ln_gemm": 2 * L * (nt + nv),
-              "fused_mlp": L * (nt + nv)}
+              "fused_mlp": L * (nt + nv), "int8_gemm": 0}
     finite = bool(np.isfinite(np.asarray(epochs)).all()) and len(epochs) == 2
     ok = launches == expect and not plain_calls and finite and written and bool(np.isfinite(scores).all())
 
@@ -657,19 +964,27 @@ def main():
     records = parity_phase(checks)
     records["attention_bwd"] = attention_bwd_phase(checks)
     layer_grad_phase(checks)
-    search = search_phase(checks, smi)
+    records["int8_gemm"] = int8_phase(checks)
+    bf16_search = search_phase(checks, smi)
+    search = bf16_search["launches"]
+    search_int8, int8_task = int8_search_phase(checks, smi, bf16_search)
+    server_phase(checks, int8_task)
+    del int8_task
+    torch.cuda.empty_cache()
     train = train_phase(checks, smi)
     kernels = []
     for name in KERNELS:
         r = records[name]
-        # each kernel's launches on its own path: the search (forward) or,
-        # for the attention backward, training
-        main_path = train if name == "attention_bwd" else search
+        # each kernel's launches on its own path: the search (forward), the
+        # int8 search for kernel E, training for the attention backward
+        main_path = {"attention_bwd": train, "int8_gemm": search_int8}.get(name, search)
+        extra = {"int_mm_ms": r["int_mm_ms"]} if "int_mm_ms" in r else {}
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": main_path[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "grids_per_launch": GRIDS_PER_LAUNCH[name],
-                        "launches_by_path": {"search": search.get(name, 0), "train": train.get(name, 0)}})
+                        "launches_by_path": {"search": search.get(name, 0), "search_int8": search_int8.get(name, 0),
+                                             "train": train.get(name, 0)}, **extra})
     if checks.failed:
         print("chip_smoke: FAILED " + ", ".join(checks.failed), file=sys.stderr)
         sys.exit(1)

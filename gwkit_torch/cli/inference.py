@@ -8,11 +8,14 @@ model over strain segments and write clustered triggers.
 
 It runs on the CUDA card (bf16, tanh GELU, every encoder layer on the
 hand-written kernels) unless ``--cpu`` is given (f32, erf GELU, plain
-PyTorch), the settings gwkit picks on a TPU and on the CPU.
+PyTorch), the settings gwkit picks on a TPU and on the CPU. ``--int8`` puts
+the encoder's projections on int8 (kernel E) on the card and, as in gwkit,
+does nothing on the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from argparse import ArgumentParser
@@ -60,6 +63,9 @@ def parse_args(argv=None):
     p.add_argument("--stream", type=int, choices=[0, 1], default=None,
                    help="Read segments on a reader thread one ahead (1) or all up front "
                         "(0, the default).")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 projections in every encoder layer (the card only; a no-op "
+                        "with --cpu).")
     return parse_with_config(p, argv)
 
 
@@ -99,6 +105,7 @@ def load_task_from_components(
     seed: int = 42,
     pretrained_encoder: Optional[str] = None,
     target_shape: Tuple[int, int] = (80, 3000),
+    quant_int8: bool = False,
     compute_dtype: Optional[torch.dtype] = None,
     device: DeviceLike = None,
 ) -> Task:
@@ -108,14 +115,20 @@ def load_task_from_components(
     encoder runs in bf16 with tanh GELU and every layer on the kernel chain;
     on the CPU in f32 with erf GELU and the unfused layer math, as gwkit on a
     TPU and on the CPU. ``compute_dtype`` overrides (e.g. f32, to hold the
-    bf16 search against it)."""
+    bf16 search against it). ``quant_int8`` puts the projections of every
+    layer on int8 on the card; on the CPU it does nothing and warns, as
+    gwkit's ``quant_int8 and on_tpu``."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     n_frames = int(target_shape[1])
     if compute_dtype is None:
         compute_dtype = torch.bfloat16 if on_card else torch.float32
+    if quant_int8 and not on_card:
+        logging.warning("int8 projections need the fused layer on the card; the CPU search runs "
+                        "without them")
     enc_cfg = config_for(encoder, compute_dtype=compute_dtype, gelu_approx=on_card,
-                         fused_block=on_card, max_positions=n_frames // 2)
+                         fused_block=on_card, quant_int8=quant_int8 and on_card,
+                         max_positions=n_frames // 2)
     adapters, _ = import_peft_dir(lora_weights, n_layers=enc_cfg.n_layers)
     qcfg = QAdapterConfig(target_shape=(int(target_shape[0]), n_frames))
     head, _ = load_pytree_npz(dense_weights, mlp_head_shapes(
@@ -160,7 +173,8 @@ def main(argv=None):
         args.lora_weights, args.dense_weights, args.adapter_weights,
         encoder=args.encoder, hf_checkpoint=args.hf_checkpoint, usr=not args.softmax,
         seed=args.seed, pretrained_encoder=args.pretrained_encoder,
-        target_shape=tuple(args.target_shape), device="cpu" if args.cpu else None,
+        target_shape=tuple(args.target_shape), quant_int8=args.int8,
+        device="cpu" if args.cpu else None,
     )
     if args.debug_nans:
         task.score = _finite_scores(task.score)

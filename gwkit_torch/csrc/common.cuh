@@ -96,29 +96,41 @@ __device__ __forceinline__ void load_tile(T* dst, int ldd, const T* src, long lo
   __syncthreads();
 }
 
-// LayerNorm of `rows` rows of width K held in shared memory, in place, with
-// the semantics of gwkit's in-kernel _ln_f32 (fused_block.py:66-71): f32 mean
-// and biased variance, normalize, round to T, then scale and shift in T.
+// LayerNorm of one row of width K in shared memory, in place, by one warp,
+// with the semantics of gwkit's in-kernel _ln_f32 (fused_block.py:66-71): f32
+// mean and biased variance, normalize, round to T, then scale and shift in T.
+// Lane l touches only elements l, l + 32, ...
+template <typename T>
+__device__ void ln_row(T* row, int K, const T* g, const T* b) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+  for (int c = lane; c < K; c += 32) s += to_f(row[c]);
+  const float mean = warp_sum(s) / (float)K;
+  float v = 0.f;
+  for (int c = lane; c < K; c += 32) {
+    const float d = to_f(row[c]) - mean;
+    v += d * d;
+  }
+  const float var = warp_sum(v) / (float)K;
+  const float rstd = 1.f / sqrtf(var + 1e-5f);
+  for (int c = lane; c < K; c += 32) {
+    const float y = rnd<T>((to_f(row[c]) - mean) * rstd);
+    row[c] = from_f<T>(rnd<T>(y * to_f(g[c])) + to_f(b[c]));
+  }
+}
+
+// ln_row over `rows` rows of a shared panel, one warp per row.
 template <typename T>
 __device__ void ln_rows(T* a, int lda, int rows, int K, const T* g, const T* b) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < rows; r += kWarps) {
-    T* row = a + r * lda;
-    float s = 0.f;
-    for (int c = lane; c < K; c += 32) s += to_f(row[c]);
-    const float mean = warp_sum(s) / (float)K;
-    float v = 0.f;
-    for (int c = lane; c < K; c += 32) {
-      const float d = to_f(row[c]) - mean;
-      v += d * d;
-    }
-    const float var = warp_sum(v) / (float)K;
-    const float rstd = 1.f / sqrtf(var + 1e-5f);
-    for (int c = lane; c < K; c += 32) {
-      const float y = rnd<T>((to_f(row[c]) - mean) * rstd);
-      row[c] = from_f<T>(rnd<T>(y * to_f(g[c])) + to_f(b[c]));
-    }
-  }
+  for (int r = threadIdx.x >> 5; r < rows; r += kWarps) ln_row(a + r * lda, K, g, b);
+}
+
+// GELU of a value already rounded to the compute type, in f32: the tanh
+// form (approx != 0, gwkit's accelerator setting) or the erf form. Kernels
+// C and E round its result to the compute type.
+__device__ __forceinline__ float gelu(float h, int approx) {
+  if (approx) return 0.5f * h * (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
+  return 0.5f * h * (1.f + erff(h * 0.7071067811865476f));
 }
 
 template <typename T, int BM, int BN> struct Acc;

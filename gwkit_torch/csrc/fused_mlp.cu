@@ -42,11 +42,6 @@ template <typename T, int D> struct Mlp {
   static constexpr size_t SMEM = R0 + 2 * W1S + HS + HDS + 2 * W2S;
 };
 
-__device__ __forceinline__ float gelu(float h, int approx) {
-  if (approx) return 0.5f * h * (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
-  return 0.5f * h * (1.f + erff(h * 0.7071067811865476f));
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 fused_mlp_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ b,

@@ -10,8 +10,9 @@
 Parameters keep gwkit's layout (linear ``w`` (d_in, d_out), conv ``w``
 (3, C_in, C_out)); the layers are a Python list of per-layer dicts and run in
 a Python loop. With ``cfg.fused_block`` each layer runs the CUDA kernel chain
-of :mod:`gwkit_torch.ops.fused_block` (its plain versions on the CPU);
-otherwise the unfused ``_block`` math, gwkit's default path.
+of :mod:`gwkit_torch.ops.fused_block` (its plain versions on the CPU), with
+``cfg.quant_int8`` on int8 projections; otherwise the unfused ``_block``
+math, gwkit's default path (where ``quant_int8`` does nothing, as in gwkit).
 
 Two entry points: :class:`WhisperEncoder` prepares the weights once and
 runs without gradients (the search); :func:`encoder_apply` takes the
@@ -46,6 +47,7 @@ class WhisperConfig:
     compute_dtype: torch.dtype = torch.float32
     gelu_approx: bool = False  # tanh GELU (gwkit's TPU setting) instead of erf
     fused_block: bool = False  # each layer on the kernel chain (ops.fused_block)
+    quant_int8: bool = False  # int8 projections inside the fused layer (inference; needs fused_block)
 
     @property
     def head_dim(self) -> int:
@@ -190,7 +192,8 @@ class WhisperEncoder:
         self.params = {name: tree_to(params[name], dt) for name in ("conv1", "conv2", "pos", "ln_post")}
         ads = adapters if adapters is not None else [None] * len(params["layers"])
         if cfg.fused_block:
-            self.layers: List = [fold_layer(p, a, cfg.n_heads, dt) for p, a in zip(params["layers"], ads)]
+            self.layers: List = [fold_layer(p, a, cfg.n_heads, dt, quant=cfg.quant_int8)
+                                 for p, a in zip(params["layers"], ads)]
         else:
             self.layers = [(tree_to(p, dt), tree_to(a, dt) if a else None)
                            for p, a in zip(params["layers"], ads)]
@@ -219,7 +222,7 @@ def encoder_apply(cfg: WhisperConfig, params: dict, mel: torch.Tensor,
     def run_layer(x, layer):
         p, a = tree_to(layer[0], dt), (tree_to(layer[1], dt) if layer[1] else None)
         if cfg.fused_block:
-            return fused_encoder_block(x, p, cfg.n_heads, a, approx=cfg.gelu_approx)
+            return fused_encoder_block(x, p, cfg.n_heads, a, approx=cfg.gelu_approx, quant=cfg.quant_int8)
         return _block(x, p, cfg, a)
 
     ads = adapters if adapters is not None else [None] * len(params["layers"])

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("attention", "attention_bwd", "ln_gemm", "fused_mlp")
+SOURCES = ("attention", "attention_bwd", "ln_gemm", "fused_mlp", "int8_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +43,7 @@ _SIGNATURES = {
     "attention_bwd": ("gw_attention_bwd", [_P] * 8 + [_I] * 7 + [_P]),
     "ln_gemm": ("gw_ln_gemm", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "fused_mlp": ("gw_fused_mlp", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "int8_gemm": ("gw_int8_gemm", [_P] * 8 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()

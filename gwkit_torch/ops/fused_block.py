@@ -16,6 +16,20 @@ by :func:`fold_layer`, in plain f32 PyTorch (gwkit ``_effective_proj`` and
 the q-scale fold at fused_block.py:399-408); the search path folds when the
 model is loaded and keeps the result on the device.
 
+With int8 projections (``quant``, gwkit's K6) every projection is a launch
+of kernel E (:mod:`gwkit_torch.ops.int8_gemm`). gwkit then computes one of
+three different functions, picked by its VMEM estimate (``_fused_impl``,
+fused_block.py:379-391, :431-470), and the port copies that decision
+(:func:`_quant_regime`):
+
+  fused      E(LN1+QKV) -> A (K3's contract) -> E(o+res) -> E(LN2+fc1+GELU)
+             -> E(fc2+res); weights quantized from the folded compute-dtype
+             weights (q scale folded in)
+  split      E -> A -> E -> C: the MLP stays unquantized
+  reference  gwkit's ``_reference_block(quant=True)``: weights quantized from
+             the f32 effective weights, q scaled after its projection in the
+             compute dtype, attention under K1's contract
+
 On CPU tensors each stage takes its kernel's plain version, so the chain's
 wiring is tested on the CPU against gwkit. ``_reference_block`` is gwkit's
 unfused math for the same layer.
@@ -43,6 +57,19 @@ from gwkit_torch.ops.attention import attention_from_qkv, flash_attention
 from gwkit_torch.ops.dora import dora_linear, dora_row_norms
 from gwkit_torch.ops.fused_mlp import _gelu, fused_mlp_block
 from gwkit_torch.ops.fused_mlp import _ln as _ln_f32
+from gwkit_torch.ops.int8_gemm import QuantProj, _qdot, _quantize_cols, int8_gemm
+
+# gwkit's scoped VMEM limit, which picks the int8 regime (_fused_impl)
+VMEM_LIMIT = 16 * (1 << 20)
+
+
+@dataclasses.dataclass
+class QuantLayer:
+    """One layer's int8 projections (weights quantized once, at fold time)."""
+    qkv: QuantProj  # (D, 3D)
+    o: QuantProj    # (D, D)
+    fc1: QuantProj  # (D, F)
+    fc2: QuantProj  # (F, D)
 
 
 @dataclasses.dataclass
@@ -61,6 +88,10 @@ class FusedLayer:
     b1: torch.Tensor    # (F,) f32
     w2: torch.Tensor    # (F, D)
     b2: torch.Tensor    # (D,) f32
+    # int8 (fold_layer(quant=True)): for the fused and split regimes, and
+    # for the reference regime
+    int8: Optional[QuantLayer] = None
+    int8_ref: Optional[QuantLayer] = None
 
 
 def _effective_proj(p_entry: dict, adapter: Optional[dict]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -80,11 +111,15 @@ def _effective_proj(p_entry: dict, adapter: Optional[dict]) -> Tuple[torch.Tenso
 
 
 @torch.no_grad()
-def fold_layer(p: dict, adapters: Optional[dict], n_heads: int, dtype: torch.dtype) -> FusedLayer:
+def fold_layer(p: dict, adapters: Optional[dict], n_heads: int, dtype: torch.dtype,
+               quant: bool = False) -> FusedLayer:
     """Fold one layer's parameters (gwkit layout) for the kernel chain.
 
     Parameters are first cast to ``dtype`` as gwkit's encoder casts them
-    before its layer kernel; the folding itself runs in f32."""
+    before its layer kernel; the folding itself runs in f32. ``quant`` adds
+    the int8 projections of both weight sets gwkit quantizes: the folded
+    weights as they stand in the compute dtype (fused_block.py:423-426) and
+    the f32 effective weights of its reference math (:342-344)."""
     p = tree_to(p, dtype)
     ad = tree_to(adapters or {}, dtype)
     D = p["q"]["w"].shape[0]
@@ -97,7 +132,7 @@ def fold_layer(p: dict, adapters: Optional[dict], n_heads: int, dtype: torch.dty
     wqkv = torch.cat([rounded(eff["q"][0]) * q_scale, rounded(eff["k"][0]),
                       rounded(eff["v"][0])], dim=1).to(dtype)
     bqkv = torch.cat([(eff["q"][1].to(dtype) * q_scale).float(), eff["k"][1], eff["v"][1]])
-    return FusedLayer(
+    layer = FusedLayer(
         n_heads=n_heads,
         ln1_g=p["attn_ln"]["g"], ln1_b=p["attn_ln"]["b"],
         wqkv=wqkv.contiguous(), bqkv=bqkv.contiguous(),
@@ -106,6 +141,26 @@ def fold_layer(p: dict, adapters: Optional[dict], n_heads: int, dtype: torch.dty
         w1=p["fc1"]["w"].contiguous(), b1=p["fc1"]["b"].float(),
         w2=p["fc2"]["w"].contiguous(), b2=p["fc2"]["b"].float(),
     )
+    if quant:
+        fc1, fc2 = QuantProj.of(layer.w1, layer.b1), QuantProj.of(layer.w2, layer.b2)
+        layer.int8 = QuantLayer(QuantProj.of(layer.wqkv, layer.bqkv), QuantProj.of(layer.wo, layer.bo),
+                                fc1, fc2)
+        layer.int8_ref = QuantLayer(
+            QuantProj.of(torch.cat([eff[n][0] for n in "qkv"], dim=1), torch.cat([eff[n][1] for n in "qkv"])),
+            QuantProj.of(*eff["o"]), fc1, fc2)
+    return layer
+
+
+def _quant_regime(T: int, D: int, F: int, dtype: torch.dtype) -> str:
+    """gwkit's choice among its three int8 layer functions (``_fused_impl``,
+    fused_block.py:385-391, :435, :448): "reference" when the attention-only
+    kernel's VMEM estimate exceeds 16 MiB, else "fused" when the whole-layer
+    kernel's fits, else "split". Weights count 1 byte each."""
+    tp = -(-T // 128) * 128
+    act = 7 * tp * D * torch.empty((), dtype=dtype).element_size()
+    if act + 4 * D * D > VMEM_LIMIT:
+        return "reference"
+    return "fused" if act + 4 * D * D + 2 * D * F + 4 * (1 << 20) <= VMEM_LIMIT else "split"
 
 
 def _ln_gemm_reference(x2, w, bias, ln=None, residual=None) -> torch.Tensor:
@@ -156,9 +211,38 @@ def ln_gemm(x2: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+def _quant_layer_apply(x: torch.Tensor, layer: FusedLayer, approx: bool, skip_mlp: bool) -> torch.Tensor:
+    """The int8 layer in gwkit's regime for x's geometry (module docstring)."""
+    B, T, D = x.shape
+    F = layer.w1.shape[1]
+    regime = _quant_regime(T, D, F, x.dtype)
+    q = layer.int8_ref if regime == "reference" else layer.int8
+    x2 = x.reshape(B * T, D).contiguous()
+    qkv = int8_gemm(x2, q.qkv, ln=(layer.ln1_g, layer.ln1_b))
+    if regime == "reference":
+        H = layer.n_heads
+        hd = D // H
+        qh = (qkv[:, :D] * hd ** -0.5).view(B, T, H, hd)
+        kh, vh = (qkv[:, i * D:(i + 1) * D].view(B, T, H, hd) for i in (1, 2))
+        att = flash_attention(qh, kh, vh).reshape(B * T, D)
+    else:
+        att = attention_from_qkv(qkv.view(B, T, 3 * D), layer.n_heads).view(B * T, D)
+    x1 = int8_gemm(att, q.o, residual=x2)
+    if skip_mlp:
+        return x1.view(B, T, D)
+    if regime == "split":
+        return fused_mlp_block(x1.view(B, T, D), layer.ln2_g, layer.ln2_b, layer.w1, layer.b1, layer.w2,
+                               layer.b2, approx=approx)
+    h = int8_gemm(x1, q.fc1, ln=(layer.ln2_g, layer.ln2_b), act="tanh" if approx else "erf")
+    return int8_gemm(h, q.fc2, residual=x1).view(B, T, D)
+
+
 def fused_layer_apply(x: torch.Tensor, layer: FusedLayer, approx: bool = False,
                       skip_mlp: bool = False) -> torch.Tensor:
-    """Run one folded layer on x (B, T, D): B -> A -> B [-> C]."""
+    """Run one folded layer on x (B, T, D): B -> A -> B [-> C], or with the
+    layer's int8 projections the int8 chain of gwkit's regime."""
+    if layer.int8 is not None:
+        return _quant_layer_apply(x, layer, approx, skip_mlp)
     B, T, D = x.shape
     x2 = x.reshape(B * T, D).contiguous()
     qkv = ln_gemm(x2, layer.wqkv, layer.bqkv, ln=(layer.ln1_g, layer.ln1_b))
@@ -196,14 +280,16 @@ def _fill(spec, leaves):
 
 class FusedBlock(torch.autograd.Function):
     """The layer on the kernel chain, differentiable in x and in every
-    tensor of the parameters and adapters (``scaling`` included)."""
+    tensor of the parameters and adapters (``scaling`` included). With
+    ``quant`` the forward is the int8 layer and the backward stays the
+    full-precision one (straight through, as gwkit's ``_fused_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x, n_heads, approx, spec, *leaves):
+    def forward(ctx, x, n_heads, approx, quant, spec, *leaves):
         ctx.save_for_backward(x, *leaves)
         ctx.layer = (n_heads, approx, spec)
         p, ad = _fill(spec, leaves)
-        return fused_layer_apply(x, fold_layer(p, ad, n_heads, x.dtype), approx)
+        return fused_layer_apply(x, fold_layer(p, ad, n_heads, x.dtype, quant=quant), approx)
 
     @staticmethod
     def backward(ctx, g):
@@ -212,17 +298,17 @@ class FusedBlock(torch.autograd.Function):
         need = ctx.needs_input_grad
         with torch.enable_grad():
             xs = x.detach().requires_grad_(need[0])
-            ls = [t.detach().requires_grad_(n) for t, n in zip(leaves, need[4:])]
+            ls = [t.detach().requires_grad_(n) for t, n in zip(leaves, need[5:])]
             p, ad = _fill(spec, ls)
             out = _reference_block(xs, p, ad, n_heads, approx, flash=True)
             wrt = [t for t in [xs, *ls] if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True) if wrt else ())
         dx = next(grads) if xs.requires_grad else None
-        return (dx, None, None, None, *(next(grads) if t.requires_grad else None for t in ls))
+        return (dx, None, None, None, None, *(next(grads) if t.requires_grad else None for t in ls))
 
 
 def fused_encoder_block(x: torch.Tensor, p: dict, n_heads: int, adapters: Optional[dict] = None,
-                        approx: bool = False, skip_mlp: bool = False) -> torch.Tensor:
+                        approx: bool = False, skip_mlp: bool = False, quant: bool = False) -> torch.Tensor:
     """One whole pre-LN transformer block: x (B, T, D) -> (B, T, D).
 
     ``p``: per-layer params (attn_ln, q, k, v, o, mlp_ln, fc1, fc2), gwkit
@@ -230,21 +316,24 @@ def fused_encoder_block(x: torch.Tensor, p: dict, n_heads: int, adapters: Option
     the weights on every call and is differentiable (:class:`FusedBlock`);
     the search path folds once with :func:`fold_layer` and calls
     :func:`fused_layer_apply`. ``skip_mlp`` (the counterpart of K4) is
-    forward only."""
+    forward only. ``quant``: int8 projections (gwkit's ``quant``)."""
     if skip_mlp:
-        return fused_layer_apply(x, fold_layer(p, adapters, n_heads, x.dtype), approx, skip_mlp)
+        return fused_layer_apply(x, fold_layer(p, adapters, n_heads, x.dtype, quant=quant), approx,
+                                 skip_mlp)
     leaves: List[torch.Tensor] = []
     spec = (_split(p, leaves), _split(adapters, leaves))
-    return FusedBlock.apply(x, n_heads, approx, spec, *leaves)
+    return FusedBlock.apply(x, n_heads, approx, quant, spec, *leaves)
 
 
 def _reference_block(x: torch.Tensor, p: dict, adapters: Optional[dict], n_heads: int,
-                     approx: bool, flash: bool = False) -> torch.Tensor:
+                     approx: bool, flash: bool = False, quant: bool = False) -> torch.Tensor:
     """gwkit's unfused math for the same layer (``_reference_block``,
     fused_block.py:320-367): DoRA applied in factored form, attention with
     the full (B, H, T, T) probability tensor, or with ``flash=True`` through
     :func:`~gwkit_torch.ops.attention.flash_attention` (kernel A forward and
-    kernel D backward on the card; no T x T tensor reaches device memory)."""
+    kernel D backward on the card; no T x T tensor reaches device memory).
+    ``quant``: each projection int8 from its own f32 effective weight
+    (``_qdot``), the result rounded to x's dtype; plain PyTorch throughout."""
     if not flash:
         _cuda.count_plain("block")
     dt = x.dtype
@@ -254,6 +343,11 @@ def _reference_block(x: torch.Tensor, p: dict, adapters: Optional[dict], n_heads
 
     def prj(name, h):
         entry = {k: v.to(dt) for k, v in p[name].items()}
+        if quant:
+            w_eff, _ = _effective_proj(entry, ad.get(name))
+            wq, sw = _quantize_cols(w_eff)
+            y = _qdot(h.reshape(-1, h.shape[-1]), wq, sw, entry.get("b"))
+            return y.reshape(*h.shape[:-1], -1).to(dt)
         if name in ad:
             return dora_linear(h, entry["w"], entry.get("b"), ad[name])
         y = h @ entry["w"]

@@ -94,7 +94,44 @@ def test_kernel_wrappers_refuse_mixed_devices():
     x = torch.randn(4, 32)
     y = ln_gemm(x, torch.randn(32, 8), torch.zeros(8))
     assert y.shape == (4, 8)
-    assert _cuda.LAUNCHES == {"attention": 0, "attention_bwd": 0, "ln_gemm": 0, "fused_mlp": 0}
+    assert _cuda.LAUNCHES == {"attention": 0, "attention_bwd": 0, "ln_gemm": 0, "fused_mlp": 0,
+                              "int8_gemm": 0}
     assert _cuda.PLAIN_CALLS == {"ln_gemm": 1}
     with pytest.raises(ValueError, match="CUDA"):
         _cuda.require_cuda("ln_gemm", x)
+
+
+def test_int8_gemm_refuses_mixed_devices():
+    """Kernel E's wrapper: CPU operands take the plain version; an operand
+    on another device is refused, on either path."""
+    from gwkit_torch.ops import _cuda
+    from gwkit_torch.ops.int8_gemm import QuantProj, int8_gemm
+
+    proj = QuantProj.of(torch.randn(64, 16), torch.zeros(16))
+    _cuda.reset_counts()
+    assert int8_gemm(torch.randn(4, 64), proj).shape == (4, 16)
+    assert _cuda.PLAIN_CALLS == {"int8_gemm": 1} and _cuda.LAUNCHES["int8_gemm"] == 0
+    elsewhere = torch.empty(4, 64, device="meta")
+    with pytest.raises(ValueError, match="more than one device"):
+        int8_gemm(torch.randn(4, 64), proj, residual=torch.empty(4, 16, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        int8_gemm(elsewhere, proj)
+    with pytest.raises(ValueError, match="GELU or a residual"):
+        int8_gemm(torch.randn(4, 64), proj, act="tanh", residual=torch.randn(4, 16))
+
+
+def test_serve_cli_needs_cuda_unless_cpu(monkeypatch, tmp_path):
+    """Server mode of python -m gwkit_torch.cli.serve runs on the card and
+    raises without one unless --cpu is given."""
+    from gwkit_torch.cli import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    run = os.path.join(ROOT, "artifacts", "capstone_r5", "run")
+    args = ["--socket", str(tmp_path / "s.sock"), "--int8",
+            "--lora-weights", os.path.join(run, "best_lora_weights"),
+            "--dense-weights", os.path.join(run, "best_dense_layers.npz"),
+            "--adapter-weights", os.path.join(run, "best_adapter.npz"), "--target-shape", "80", "512"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(args)
+    with pytest.raises(SystemExit, match="requires --dense-weights"):
+        serve.main(["--socket", str(tmp_path / "s.sock"), "--lora-weights", "l"])
