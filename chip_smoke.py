@@ -5,12 +5,21 @@
 Phases, each printing one JSON line:
   1 device   the card, its power limit, torch/CUDA versions, TF32 flags
              (both turned off for the f32 phases);
-  2 build    nvcc for sm_90a of every kernel source, all at once;
-  3 parity   each hand-written kernel against its plain PyTorch version on
+  2 build    nvcc for sm_90a of every kernel source, all at once; each
+             kernel's registers and spill bytes (kernel A's bf16 kernels
+             must not spill);
+  3 parity   kernel A's K3 exp against expf on every bf16 input and its
+             K1 division against the IEEE quotient; each
+             hand-written kernel against its plain PyTorch version on
              the card, f32 and bf16, at the main path's shapes (one
-             whisper-tiny layer over 256 sequences x 256 tokens), at the
-             strict attention geometry (T = 1500, score scales 1e-3..1e3,
-             kernel A under K1's contract and under K3's) and at whisper-base width
+             whisper-tiny layer over 256 sequences x 256 tokens); kernel A
+             on its one-pass (T = 200, 256) and two-pass paths (T = 300,
+             1500) under both contracts, in place and contiguous, score
+             scales 1 and 60 (1e-3..1e3 at T = 1500), and at the training
+             forward's shapes (64 and 128 x 6 x T = 256, K1), with times
+             (CUDA events around a call, and the profiler's device time)
+             at T = 1500 and at the training forward, and its host work a
+             call; whisper-base width
              (D = 512, T = 1500), with times; the attention backward
              (kernel D) at the training shapes (128 sequences x 6 heads x
              T = 256) and at T = 1500; the layer's gradients through
@@ -43,9 +52,11 @@ then the card's name and power limit, and the result line last.
 Fails (non-zero exit, no result line) on any disagreement, and without CUDA.
 """
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -117,6 +128,22 @@ def median_ms(fn, reps=15):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=20):
+    """Device time of one call of ``fn``: the profiler's CUDA time over
+    ``reps`` calls, divided by ``reps`` (no host work between launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "self_device_time_total", 0.0) or 0.0) for e in prof.key_averages()
+             if "cuda" in str(getattr(e, "device_type", "")).lower())
+    return us / 1e3 / reps if us > 0 else "not measured"
+
+
 def bound_ms(n_bytes, flops, dtype, peak=None):
     peak = peak or (H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS)
     t_bytes, t_ops = n_bytes / H100_BYTES * 1e3, flops / peak * 1e3
@@ -164,14 +191,49 @@ def device_phase():
     return smi
 
 
-def build_phase():
+def _ptxas(log):
+    """Per kernel function: registers and spill bytes from nvcc's -Xptxas -v
+    log, with ptxas's performance warnings."""
+    funcs, warnings = [], []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            funcs.append({"function": m.group(1)})
+        elif funcs and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            funcs[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif funcs and (m := re.search(r"Used (\d+) registers", ln)):
+            funcs[-1]["registers"] = int(m.group(1))
+        elif "Performance Loss" in ln:
+            warnings.append(ln.strip())
+    return funcs, warnings
+
+
+def _max_sass_register(path, function):
+    """The highest register a function's SASS names: kernel A's consumers
+    run past the block's count after setmaxnreg."""
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", "-fun", function, str(path)], capture_output=True, text=True).stdout
+    regs = [int(r) for r in re.findall(r"\bR(\d+)\b", sass)]
+    return max(regs) + 1 if regs else "not measured"
+
+
+def build_phase(checks):
     t0 = time.time()
     paths = _cuda.build()
-    ptxas = {}
+    seconds = time.time() - t0
+    ptxas, ok = {}, True
     for name, path in paths.items():
         log = path.with_suffix(".log").read_text() if path.with_suffix(".log").is_file() else ""
-        ptxas[name] = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    emit("build", seconds=time.time() - t0, libraries=[p.name for p in paths.values()], ptxas=ptxas)
+        funcs, warnings = _ptxas(log)
+        for f in funcs:
+            if "hopper_attention_kernel" in f["function"]:
+                f["registers_used_after_setmaxnreg"] = _max_sass_register(path, f["function"])
+                ok = ok and f.get("spill_bytes") == 0
+        ptxas[name] = {"functions": funcs, "warnings": warnings}
+    emit("build", seconds=seconds, libraries=[p.name for p in paths.values()], ptxas=ptxas,
+         bf16_attention_spill_free=ok)
+    if not ok:
+        checks.failed.append("kernel A bf16 spills")
 
 
 def _layer(D, F, H, rng, dora):
@@ -269,42 +331,20 @@ def parity_phase(checks):
                                                        layer.b1.to(dt), layer.w2, layer.b2.to(dt), True)),
                 bound=[bound_ms(mlp_b, mlp_f, dt)], library_ms=None, max_abs_err=e_mlp),
         }
+        timing["attention"].update(
+            device_ms=device_ms(lambda: A.attention_from_qkv(qkv.view(Bs, T, 3 * D), H)),
+            library_device_ms=device_ms(sdpa))
         for name, t in timing.items():
             b_ms = sum(b for b, _ in t["bound"])
             by = t["bound"][0][1]
             rec = dict(name=name, dtype=tag, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=b_ms,
                        bound_by=by, library_ms=t["library_ms"], max_abs_err=t["max_abs_err"])
-            emit("timing", shapes="main path layer (256 seq x 256 tokens, D=384, H=6, F=1536)", **rec)
+            dev = {k: t[k] for k in ("device_ms", "library_device_ms") if k in t}
+            emit("timing", shapes="main path layer (256 seq x 256 tokens, D=384, H=6, F=1536)", **rec, **dev)
             if dt == torch.bfloat16:
                 records[name] = rec
 
-        # kernel A under both softmax contracts at the strict geometry,
-        # adversarial score scales: K1's (flash_attention, p normalised in
-        # f32 before the cast) and K3's (attention_from_qkv on the fused
-        # projection, the search path's)
-        Bq, Tq = 64, 1500
-        for scale in (1e-3, 1.0, 60.0, 1e3):
-            q = torch.from_numpy(rng.normal(size=(Bq, Tq, H, 64)).astype(np.float32) * scale / 8).cuda().to(dt)
-            k, v = (torch.from_numpy(rng.normal(size=(Bq, Tq, H, 64)).astype(np.float32)).cuda().to(dt)
-                    for _ in range(2))
-            want = A.reference_attention(q, k, v)
-            t_tol = tol if dt == torch.bfloat16 else max(tol, 4e-6 * scale)
-            got = A.flash_attention(q, k, v)
-            checks.compare(f"K1 attention (K1 contract) T=1500 scale={scale:g} {tag}", got, want, t_tol)
-            fused_qkv = torch.cat([t.reshape(Bq, Tq, H * 64) for t in (q, k, v)], dim=-1)
-            checks.compare(f"A attention_from_qkv (K3 contract) T=1500 scale={scale:g} {tag}",
-                           A.attention_from_qkv(fused_qkv, H), want.reshape(Bq, Tq, H * 64), t_tol)
-            del fused_qkv, want
-            if scale == 1.0:
-                qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
-                emit("timing", name="attention", dtype=tag, shapes="strict: 64 seq x 6 heads x T=1500",
-                     ms=median_ms(lambda: A.flash_attention(q, k, v), 5),
-                     plain_ms=median_ms(lambda: A.reference_attention(q, k, v), 5),
-                     bound_ms=bound_ms(4 * Bq * Tq * H * 64 * q.element_size(), 4 * Bq * H * Tq * Tq * 64, dt)[0],
-                     library_ms=median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                         qh, kh, vh, scale=1.0), 5))
-                del qh, kh, vh
-            del q, k, v, got
+        attention_checks(checks, rng, dt)
 
         # K2 and K4 at whisper-base width (D=512, H=8, F=2048, T=1500)
         pb, adb = _layer(512, 2048, 8, rng, True)
@@ -327,6 +367,143 @@ def parity_phase(checks):
         del xb, pb, adb, lb
         torch.cuda.empty_cache()
     return records
+
+
+# kernel A's checks: (T, sequences, score scales). T = 200 and 256 take the
+# one-pass path (200 with a ragged last key tile), 300 and 1500 two passes
+# (both ragged; 300 pads an odd tile count)
+ATTN_CASES = ((200, 16, (1.0, 60.0)), (256, 16, (1.0, 60.0)), (300, 16, (1.0, 60.0)),
+              (1500, 64, (1e-3, 1.0, 60.0, 1e3)))
+
+
+def _attention_inputs(rng, B, T, H, scale, dt):
+    q = torch.from_numpy(rng.normal(size=(B, T, H, 64)).astype(np.float32) * scale / 8).cuda().to(dt)
+    k, v = (torch.from_numpy(rng.normal(size=(B, T, H, 64)).astype(np.float32)).cuda().to(dt) for _ in range(2))
+    return q, k, v
+
+
+def _sdpa_ms(q, k, v, reps):
+    """SDPA on the same inputs: the median of CUDA events around one call,
+    and the profiler's device time of one call."""
+    qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+    call = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+    return median_ms(call, reps), device_ms(call, reps)
+
+
+def attention_checks(checks, rng, dt):
+    """Kernel A against reference_attention on each of its paths (ATTN_CASES)
+    under both contracts and in both layouts: K1's through flash_attention on
+    contiguous tensors and on in-place views of a fused (B, T, 3D)
+    projection, K3's through attention_from_qkv in place and through the
+    launch on contiguous tensors; K1 at the training forward's shapes.
+    Times at the strict geometry under both contracts and at the training
+    forward (K1), SDPA's beside them."""
+    H, tag = 6, "f32" if dt == torch.float32 else "bf16"
+    lib = _cuda.library("attention")
+    for T, B, scales in ATTN_CASES:
+        for scale in scales:
+            q, k, v = _attention_inputs(rng, B, T, H, scale, dt)
+            want = A.reference_attention(q, k, v)
+            tol = TOL[dt] if dt == torch.bfloat16 else max(TOL[dt], 4e-6 * scale)
+            fused = torch.cat([t.reshape(B, T, H * 64) for t in (q, k, v)], dim=-1)
+            views = [fused[..., i * H * 64:(i + 1) * H * 64].view(B, T, H, 64) for i in range(3)]
+            k3_contiguous = torch.empty_like(q)
+            A._launch(lib, _cuda.stream_of(q), q, k, v, k3_contiguous, B, T, H, H * 64, H * 64, k1=False)
+            label = f"T={T} scale={scale:g} {tag}"
+            for name, got, ref in (
+                    ("K1 attention (K1 contract)", A.flash_attention(q, k, v), want),
+                    ("A flash_attention in place (K1 contract)", A.flash_attention(*views), want),
+                    ("A attention_from_qkv (K3 contract)", A.attention_from_qkv(fused, H), want.reshape(B, T, -1)),
+                    ("A contiguous (K3 contract)", k3_contiguous, want)):
+                checks.compare(f"{name} {label}", got, ref, tol)
+            if T == 1500 and scale == 1.0:
+                b_ms, by = bound_ms(4 * B * T * H * 64 * q.element_size(), 4 * B * H * T * T * 64, dt)
+                sdpa, sdpa_dev = _sdpa_ms(q, k, v, 5)
+                for contract, call, plain in (
+                        ("K1", lambda: A.flash_attention(q, k, v), lambda: A.reference_attention(q, k, v)),
+                        ("K3", lambda: A.attention_from_qkv(fused, H), lambda: A.reference_attention(*views))):
+                    emit("timing", name="attention", dtype=tag, contract=contract,
+                         shapes="strict: 64 seq x 6 heads x T=1500", ms=median_ms(call, 5),
+                         plain_ms=median_ms(plain, 5), bound_ms=b_ms, bound_by=by, library_ms=sdpa,
+                         device_ms=device_ms(call, 5), library_device_ms=sdpa_dev)
+            del q, k, v, want, fused, views, k3_contiguous
+    # the training forward, K1 through flash_attention: 128 sequences x 6
+    # heads x T = 256 (a train step, timed) and 64 (a short batch). A
+    # persistent block takes several items there, so its ring's stage index
+    # and parity wrap around.
+    for B in (64, 128):
+        T = 256
+        q, k, v = _attention_inputs(rng, B, T, H, 1.0, dt)
+        checks.compare(f"K1 attention (K1 contract) training forward {B}x6xT={T} {tag}", A.flash_attention(q, k, v),
+                       A.reference_attention(q, k, v), TOL[dt])
+        if B == 128:
+            b_ms, by = bound_ms(4 * B * T * H * 64 * q.element_size(), 4 * B * H * T * T * 64, dt)
+            sdpa, sdpa_dev = _sdpa_ms(q, k, v, 15)
+            emit("timing", name="attention", dtype=tag, contract="K1",
+                 shapes="training forward: 128 seq x 6 heads x T=256", ms=median_ms(lambda: A.flash_attention(q, k, v)),
+                 plain_ms=median_ms(lambda: A.reference_attention(q, k, v)), bound_ms=b_ms, bound_by=by,
+                 library_ms=sdpa, device_ms=device_ms(lambda: A.flash_attention(q, k, v)), library_device_ms=sdpa_dev)
+        del q, k, v
+    if dt == torch.bfloat16:
+        host_cost(lib)
+    torch.cuda.empty_cache()
+
+
+def host_cost(lib, n=20000, calls=2000):
+    """Kernel A's host work a call, on the host clock: the three tensor-map
+    encodings of the bf16 path (gw_attention_encode_maps, n times), and the
+    whole flash_attention call at 1 x 6 heads x T = 64, where the device's
+    work is far shorter than the host's."""
+    lib.gw_attention_encode_maps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    q, k, v = (torch.zeros(1, 64, 6, 64, dtype=torch.bfloat16, device="cuda") for _ in range(3))
+    _cuda.check(lib.gw_attention_encode_maps(q.data_ptr(), k.data_ptr(), v.data_ptr(), 1, 64, 6, 384, 10), "maps")
+    t0 = time.perf_counter()
+    _cuda.check(lib.gw_attention_encode_maps(q.data_ptr(), k.data_ptr(), v.data_ptr(), 1, 64, 6, 384, n), "maps")
+    maps_us = (time.perf_counter() - t0) / n * 1e6
+    A.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        A.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    call_us = (time.perf_counter() - t0) / calls * 1e6
+    emit("timing", name="attention host work", dtype="bf16", tensor_maps_us_per_call=maps_us,
+         flash_attention_us_per_call=call_us, shapes="1 seq x 6 heads x T=64")
+
+
+def arithmetic_checks(checks):
+    """Kernel A's arithmetic where it is cheaper than the contract's plain
+    form, on the card's own code: K3's exp (ex2.approx of x log2 e, rounded
+    to bf16) against round(expf(x)) through torch.exp for every bf16 x <= 0,
+    and K1's division (Markstein's correction through the reciprocal)
+    against the IEEE quotient of torch's tensor division on 4e6 pairs (e in
+    (0, 1] down to subnormals, l in [1, 2000] and just above 1), every
+    quotient in the normal range."""
+    lib, stream = _cuda.library("attention"), torch.cuda.current_stream().cuda_stream
+    lib.gw_attention_exp_bf16.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.gw_attention_div.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    got = torch.empty(65536, dtype=torch.int16, device="cuda")
+    _cuda.check(lib.gw_attention_exp_bf16(got.data_ptr(), stream), "attention exp")
+    x = torch.arange(65536, dtype=torch.int32, device="cuda").to(torch.int16).view(torch.bfloat16)
+    want = torch.exp(x.float()).to(torch.bfloat16).view(torch.int16)
+    sel = x.float() <= 0
+    n_exp = int((got[sel] != want[sel]).sum())
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n = 4_000_000
+    e = torch.exp(-104 * torch.rand(n, device="cuda", generator=gen))
+    l = 1 + 1999 * torch.rand(n, device="cuda", generator=gen)
+    l[: n // 4] = 1 + 1e-3 * torch.rand(n // 4, device="cuda", generator=gen)
+    q = torch.empty_like(e)
+    _cuda.check(lib.gw_attention_div(e.data_ptr(), l.data_ptr(), q.data_ptr(), n, stream), "attention div")
+    ieee = e / l
+    normal = ieee >= torch.finfo(torch.float32).tiny
+    n_div = int((q[normal] != ieee[normal]).sum())
+    emit("parity", check="A: K3's exp vs round(expf(x)) on every bf16 x <= 0; K1's division vs IEEE",
+         exp_inputs=int(sel.sum()), exp_mismatches=n_exp, div_pairs_normal=int(normal.sum()),
+         div_mismatches=n_div, div_subnormal_differing=int((q[~normal] != ieee[~normal]).sum()),
+         ok=n_exp == 0 and n_div == 0)
+    if n_exp or n_div:
+        checks.failed.append("A arithmetic")
 
 
 def attention_bwd_phase(checks):
@@ -960,7 +1137,8 @@ def main():
         sys.exit(2)
     checks = Checks()
     smi = device_phase()
-    build_phase()
+    build_phase(checks)
+    arithmetic_checks(checks)
     records = parity_phase(checks)
     records["attention_bwd"] = attention_bwd_phase(checks)
     layer_grad_phase(checks)

@@ -1,6 +1,10 @@
 """Port parity: gwkit_torch.ops.attention (plain path on the CPU) against
 gwkit's reference_attention and its Pallas flash kernel in interpret mode.
-Same numpy inputs; f32; tolerance rtol 2e-5, atol 2e-6 (f32 summation order)."""
+Same numpy inputs; f32; tolerance rtol 2e-5, atol 2e-6 (f32 summation order).
+
+The T values hold the places where kernel A branches or masks on the card:
+a ragged last 64-key tile (63, 65, 255, 257, 300), whole tiles (64, 256),
+one pass over the scores up to T = 256 and two passes above it."""
 import numpy as np
 import pytest
 import torch
@@ -12,6 +16,7 @@ from gwkit.ops.attention import reference_attention as gw_reference
 from gwkit_torch.ops.attention import attention_from_qkv, flash_attention, reference_attention
 
 TOL = dict(rtol=2e-5, atol=2e-6)
+EDGE_T = [63, 64, 65, 255, 256, 257, 300]
 
 
 def _qkv(T, H, seed):
@@ -22,7 +27,7 @@ def _qkv(T, H, seed):
 
 
 @pytest.mark.parametrize("H", [2, 6])
-@pytest.mark.parametrize("T", [50, 130, 256])
+@pytest.mark.parametrize("T", sorted({50, 130, *EDGE_T}))
 def test_attention_matches_gwkit(T, H):
     q, k, v = _qkv(T, H, seed=T + H)
     got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v))).numpy()
@@ -40,6 +45,23 @@ def test_attention_from_fused_qkv_layout():
     got = attention_from_qkv(torch.from_numpy(qkv), n_heads=6).numpy()
     want = np.asarray(gw_reference(*(jnp.asarray(a) for a in (q, k, v)))).reshape(B, T, -1)
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("T", EDGE_T)
+def test_attention_entries_on_fused_qkv_match_gwkit(T):
+    """Both entries on views of one (B, T, 3D) projection: attention_from_qkv
+    (K3's contract on the card) and flash_attention on the in-place q, k, v
+    views (K1's), against gwkit's reference and its Pallas K1."""
+    q, k, v = _qkv(T, 6, seed=T)
+    B = q.shape[0]
+    qkv = torch.from_numpy(np.concatenate([a.reshape(B, T, -1) for a in (q, k, v)], axis=-1))
+    views = [qkv[..., i * 384:(i + 1) * 384].view(B, T, 6, 64) for i in range(3)]
+    want_ref = np.asarray(gw_reference(*(jnp.asarray(a) for a in (q, k, v))))
+    want_flash = np.asarray(gw_flash(*(jnp.asarray(a) for a in (q, k, v)), interpret=True))
+    for got in (attention_from_qkv(qkv, n_heads=6).numpy().reshape(B, T, 6, 64),
+                flash_attention(*views).numpy()):
+        np.testing.assert_allclose(got, want_ref, **TOL)
+        np.testing.assert_allclose(got, want_flash, **TOL)
 
 
 def test_attention_wrapper_takes_plain_version_on_cpu():
