@@ -6,8 +6,8 @@ Phases, each printing one JSON line:
   1 device   the card, its power limit, torch/CUDA versions, TF32 flags
              (both turned off for the f32 phases);
   2 build    nvcc for sm_90a of every kernel source, all at once; each
-             kernel's registers and spill bytes (kernel A's bf16 kernels
-             must not spill);
+             kernel's registers and spill bytes (the bf16 kernels of A and
+             D must not spill and must run on wgmma: HGMMA in their SASS);
   3 parity   kernel A's K3 exp against expf on every bf16 input and its
              K1 division against the IEEE quotient; each
              hand-written kernel against its plain PyTorch version on
@@ -17,12 +17,16 @@ Phases, each printing one JSON line:
              1500) under both contracts, in place and contiguous, score
              scales 1 and 60 (1e-3..1e3 at T = 1500), and at the training
              forward's shapes (64 and 128 x 6 x T = 256, K1), with times
-             (CUDA events around a call, and the profiler's device time)
-             at T = 1500 and at the training forward, and its host work a
-             call; whisper-base width
+             (CUDA events around a call, and the profiler's device time,
+             the median of repeated calls) at T = 1500 and at the training
+             forward, and its host work a call; whisper-base width
              (D = 512, T = 1500), with times; the attention backward
              (kernel D) at the training shapes (128 sequences x 6 heads x
-             T = 256) and at T = 1500; the layer's gradients through
+             T = 256) and at T = 1500, score scales 1e-3..1e3, in bf16
+             from the row state kernel A saves and standalone (A's output
+             bits unchanged by saving it, its m, l and o against the
+             plain forward's), contiguous and from a fused QKV, reruns
+             bit-identical, times beside SDPA's backward; the layer's gradients through
              FusedBlock (kernels) against autograd of the plain layer;
              kernel E (int8) in each of its modes at the main shapes (with
              zero rows and exact .5 ties), the int8 layer in gwkit's three
@@ -129,8 +133,10 @@ def median_ms(fn, reps=15):
 
 
 def device_ms(fn, reps=20):
-    """Device time of one call of ``fn``: the profiler's CUDA time over
-    ``reps`` calls, divided by ``reps`` (no host work between launches)."""
+    """Device time of one call of ``fn``: the median over ``reps`` calls of
+    the profiler's kernel time a call. The calls stand apart by a
+    synchronize and 2 ms of sleep, so each call's kernels form one cluster
+    on the device's clock (no host work is counted)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -138,10 +144,17 @@ def device_ms(fn, reps=20):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    us = sum(float(getattr(e, "self_device_time_total", 0.0) or 0.0) for e in prof.key_averages()
-             if "cuda" in str(getattr(e, "device_type", "")).lower())
-    return us / 1e3 / reps if us > 0 else "not measured"
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if "cuda" in str(getattr(e, "device_type", "")).lower() and e.time_range.end > e.time_range.start)
+    calls, last_end = [], None
+    for start, end in spans:  # microseconds
+        if last_end is None or start - last_end > 1000:
+            calls.append(0.0)
+        calls[-1] += end - start
+        last_end = end if last_end is None else max(last_end, end)
+    return statistics.median(calls) / 1e3 if calls else "not measured"
 
 
 def bound_ms(n_bytes, flops, dtype, peak=None):
@@ -208,11 +221,14 @@ def _ptxas(log):
     return funcs, warnings
 
 
-def _max_sass_register(path, function):
+def _sass(path, function):
+    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", "-fun", function, str(path)], capture_output=True, text=True).stdout
+
+
+def _max_sass_register(sass):
     """The highest register a function's SASS names: kernel A's consumers
     run past the block's count after setmaxnreg."""
-    tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", "-fun", function, str(path)], capture_output=True, text=True).stdout
     regs = [int(r) for r in re.findall(r"\bR(\d+)\b", sass)]
     return max(regs) + 1 if regs else "not measured"
 
@@ -225,15 +241,20 @@ def build_phase(checks):
     for name, path in paths.items():
         log = path.with_suffix(".log").read_text() if path.with_suffix(".log").is_file() else ""
         funcs, warnings = _ptxas(log)
-        for f in funcs:
-            if "hopper_attention_kernel" in f["function"]:
-                f["registers_used_after_setmaxnreg"] = _max_sass_register(path, f["function"])
-                ok = ok and f.get("spill_bytes") == 0
+        for f in funcs:  # the bf16 kernels of A and D: no spills, products on wgmma (HGMMA)
+            if "hopper_" in f["function"]:
+                sass = _sass(path, f["function"])
+                f["hgmma_instructions"] = sass.count("HGMMA")
+                if "hopper_attention_kernel" in f["function"]:
+                    f["registers_used_after_setmaxnreg"] = _max_sass_register(sass)
+                ok = ok and f.get("spill_bytes") == 0 and f["hgmma_instructions"] > 0
         ptxas[name] = {"functions": funcs, "warnings": warnings}
+    names = [f["function"] for fs in ptxas.values() for f in fs["functions"]]
+    ok = ok and all(any(kernel in n for n in names) for kernel in ("hopper_dq_kernel", "hopper_dkdv_kernel"))
     emit("build", seconds=seconds, libraries=[p.name for p in paths.values()], ptxas=ptxas,
-         bf16_attention_spill_free=ok)
+         bf16_hopper_kernels_spill_free_on_hgmma=ok)
     if not ok:
-        checks.failed.append("kernel A bf16 spills")
+        checks.failed.append("kernel A or D bf16: spills or no HGMMA")
 
 
 def _layer(D, F, H, rng, dora):
@@ -506,51 +527,98 @@ def arithmetic_checks(checks):
         checks.failed.append("A arithmetic")
 
 
+# kernel D's checks: (sequences, T) x score scales; the training shapes and the strict T = 1500
+BWD_CASES = ((128, 256), (32, 1500))
+BWD_SCALES = (1e-3, 1.0, 60.0, 1e3)
+
+
+def _bwd_bound(BH, T, it):
+    """The bound of K5's function, whatever route computes it: q, k, v, dO
+    read and dq, dk, dv written once (``it`` bytes an element), and five
+    T x T x 64 products (S, dP, dV, dQ, dK; D = rowsum(p_lo * dP) needs no
+    sixth). The row state a design saves is not part of the function."""
+    return bound_ms(BH * T * 7 * 64 * it, 10 * BH * T * T * 64, torch.bfloat16 if it == 2 else torch.float32)
+
+
 def attention_bwd_phase(checks):
-    """Kernel D against its plain version, f32 and bf16, at the training
-    shapes and at the strict T = 1500; returns the bf16 training-shape record."""
+    """Kernel D against its plain version (recomputing), f32 and bf16, at
+    BWD_CASES x BWD_SCALES, on q, k, v contiguous and as in-place views of a
+    fused (B, T, 3D) projection. bf16 runs both routes: from the row state
+    that kernel A saves under K1 (the training path) and standalone (A
+    first, inside the call); A's output bits must not change when it saves
+    the state, and its m, l (f32 tolerances) and o must agree with the plain
+    forward's. Reruns must give the same bits. Times at score scale 1 beside
+    SDPA's backward, each route beside the plain version of the same
+    function (from the state, or recomputing); returns the bf16
+    training-shape record."""
     rng = np.random.default_rng(1)
     record = None
     for dt in (torch.float32, torch.bfloat16):
         tag = "f32" if dt == torch.float32 else "bf16"
-        for Bs, T, scales in ((128, 256, (1.0,)), (32, 1500, (1e-3, 1.0, 60.0, 1e3))):
-            for scale in scales:
+        for Bs, T in BWD_CASES:
+            for scale in BWD_SCALES:
                 q = torch.from_numpy(rng.normal(size=(Bs, T, 6, 64)).astype(np.float32) * scale / 8).cuda().to(dt)
                 k, v, do = (torch.from_numpy(rng.normal(size=(Bs, T, 6, 64)).astype(np.float32)).cuda().to(dt)
                             for _ in range(3))
-                got = A.attention_bwd(q, k, v, do)
+                qkv = torch.cat([t.reshape(Bs, T, -1) for t in (q, k, v)], dim=-1)
+                views = [qkv[..., i * 384:(i + 1) * 384].view(Bs, T, 6, 64) for i in range(3)]
                 want = A.reference_attention_bwd(q, k, v, do)
                 tol = TOL[dt] if dt == torch.bfloat16 else max(TOL[dt], 4e-6 * scale)
-                errs = [checks.compare(f"K5 attention_bwd d{n} {Bs}x6xT={T} scale={scale:g} {tag}", g, w, tol)
-                        for n, g, w in zip("qkv", got, want)]
-                again = A.attention_bwd(q, k, v, do)
-                if not all(bool(torch.equal(a, b)) for a, b in zip(got, again)):
-                    checks.failed.append(f"K5 deterministic {Bs}x6xT={T} {tag}")
-                if T == 256:  # q, k, v read in place from a fused (B, T, 3D) projection
-                    qkv = torch.cat([t.reshape(Bs, T, -1) for t in (q, k, v)], dim=-1)
-                    views = [qkv[..., i * 384:(i + 1) * 384].view(Bs, T, 6, 64) for i in range(3)]
-                    for n, g, w in zip("qkv", A.attention_bwd(*views, do), want):
-                        checks.compare(f"K5 attention_bwd d{n} from fused QKV {Bs}x6xT={T} {tag}", g, w, tol)
-                    del qkv, views
+                label = f"{Bs}x6xT={T} scale={scale:g} {tag}"
+                routes = {"standalone": lambda: A.attention_bwd(q, k, v, do),
+                          "standalone from fused QKV": lambda: A.attention_bwd(*views, do)}
+                if dt == torch.bfloat16:
+                    out, state = A.attention_fwd(q, k, v, save_state=True)
+                    same_bits = bool(torch.equal(out, A.attention_fwd(q, k, v)))
+                    emit("parity", check=f"A under K1: output bits with the row state saved == without, {label}",
+                         ok=same_bits)
+                    if not same_bits:
+                        checks.failed.append(f"A saved state changes output bits {label}")
+                    _, plain_state = A.reference_attention(q, k, v, with_state=True)
+                    # m and l are f32 values (the f32 tolerance, which grows with the score
+                    # scale: s sums 64 products in another order); o sums p rounded to bf16
+                    f32_tol = max(TOL[torch.float32], 4e-6 * scale)
+                    for n, g, w in zip("mlo", (state.m[:, :T], state.l[:, :T], state.o), plain_state):
+                        checks.compare(f"A row state {n} (K1) {label}", g, w, TOL[dt] if n == "o" else f32_tol)
+                    _, view_state = A.attention_fwd(*views, save_state=True)
+                    routes["saved state"] = lambda: A.attention_bwd(q, k, v, do, state)
+                    routes["saved state from fused QKV"] = lambda: A.attention_bwd(*views, do, view_state)
+                errs = []
+                for route, call in routes.items():
+                    got = call()
+                    errs += [checks.compare(f"K5 attention_bwd d{n} {route} {label}", g, w, tol)
+                             for n, g, w in zip("qkv", got, want)]
+                    again = call()
+                    same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+                    emit("parity", check=f"K5 deterministic {route} {label}", ok=same)
+                    if not same:
+                        checks.failed.append(f"K5 deterministic {route} {label}")
+                    del got, again
                 if scale == 1.0:
-                    BH = Bs * 6
-                    n_bytes, flops = 7 * BH * T * 64 * q.element_size(), 12 * BH * T * T * 64
-                    b_ms, by = bound_ms(n_bytes, flops, dt)
+                    saved = dt == torch.bfloat16
+                    b_ms, by = _bwd_bound(Bs * 6, T, q.element_size())
                     qh, kh, vh = (t.permute(0, 2, 1, 3).detach().requires_grad_() for t in (q, k, v))
-                    out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+                    out_h = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
                     doh = do.permute(0, 2, 1, 3)
+                    sdpa_bwd = lambda: torch.autograd.grad(out_h, (qh, kh, vh), doh, retain_graph=True)
+                    main = routes["saved state" if saved else "standalone"]
+                    plain = lambda: A.reference_attention_bwd(q, k, v, do, state if saved else None)
                     reps = 15 if T == 256 else 5
-                    rec = dict(name="attention_bwd", dtype=tag, ms=median_ms(lambda: A.attention_bwd(q, k, v, do), reps),
-                               plain_ms=median_ms(lambda: A.reference_attention_bwd(q, k, v, do), reps),
-                               bound_ms=b_ms, bound_by=by,
-                               library_ms=median_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
-                                                                                retain_graph=True), reps),
+                    rec = dict(name="attention_bwd", dtype=tag, route="saved state" if saved else "standalone",
+                               ms=median_ms(main, reps), device_ms=device_ms(main, reps),
+                               plain_ms=median_ms(plain, reps), bound_ms=b_ms, bound_by=by,
+                               library_ms=median_ms(sdpa_bwd, reps), library_device_ms=device_ms(sdpa_bwd, reps),
                                max_abs_err=max(errs), deterministic=True)
+                    if saved:  # the standalone call (kernel A first, then D), the same bound
+                        rec.update(standalone_ms=median_ms(routes["standalone"], reps),
+                                   standalone_device_ms=device_ms(routes["standalone"], reps),
+                                   standalone_plain_ms=median_ms(lambda: A.reference_attention_bwd(q, k, v, do),
+                                                                 reps))
                     emit("timing", shapes=f"{Bs} seq x 6 heads x T={T}, hd 64", **rec)
                     if dt == torch.bfloat16 and T == 256:
                         record = rec
-                    del qh, kh, vh, out
-                del q, k, v, do, got, want, again
+                    del qh, kh, vh, out_h
+                del q, k, v, do, qkv, views, want, routes
                 torch.cuda.empty_cache()
     return record
 
@@ -1156,7 +1224,8 @@ def main():
         # each kernel's launches on its own path: the search (forward), the
         # int8 search for kernel E, training for the attention backward
         main_path = {"attention_bwd": train, "int8_gemm": search_int8}.get(name, search)
-        extra = {"int_mm_ms": r["int_mm_ms"]} if "int_mm_ms" in r else {}
+        extra = {key: r[key] for key in ("int_mm_ms", "device_ms", "library_device_ms", "standalone_ms",
+                                         "standalone_device_ms", "standalone_plain_ms") if key in r}
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": main_path[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

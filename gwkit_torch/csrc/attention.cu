@@ -65,6 +65,10 @@
 // q, k and v are read in place through 4-D tensor maps (64, H, T, B) over
 // their row strides; rows at or beyond T arrive as zeros (keys are masked
 // by index, query rows are not stored).
+// Under K1 a caller may ask for the backward's row state (the training
+// recompute does): each row's exact max m and f32 sum l and the f32 output
+// before its rounding, stored from the epilogue's registers. Kernel D
+// (attention_bwd.cu) reads them instead of recomputing them.
 //
 // float32 (attention_kernel, CPU-equivalent checks and the f32 tasks):
 // plain f32 FMA (wgmma has no full-f32 mode and TF32 would break the f32
@@ -75,6 +79,12 @@
 #include "hopper.cuh"
 
 namespace gw {
+
+using hopper::div_rn;
+using hopper::mask_cols;
+using hopper::quad_max;
+using hopper::quad_sum;
+using hopper::quad_transpose;
 
 // ---- float32: FMA tiles in shared memory -------------------------------------
 
@@ -242,44 +252,6 @@ struct HopperAttn {
   static constexpr uint32_t CONSUMER_WARPS = CONSUMERS * 4;
 };
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Transpose a 4 x 4 block of 32-bit words across the four lanes of a quad:
-// afterwards lane x holds in a[y] what lane y held in a[x].
-__device__ __forceinline__ void quad_transpose(uint32_t (&a)[4], int x) {
-#pragma unroll
-  for (int d = 1; d <= 2; d <<= 1) {
-    const bool upper = (x & d) != 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (i & d) continue;
-      const uint32_t recv = __shfl_xor_sync(0xffffffffu, upper ? a[i] : a[i | d], d);
-      if (upper)
-        a[i] = recv;
-      else
-        a[i | d] = recv;
-    }
-  }
-}
-
-// keys at or beyond T of the 64-key tile at key0 become -inf (accumulator
-// layout: d[4j + 2i + e] is column 8j + 2x + e)
-__device__ __forceinline__ void mask_tile(float (&s)[32], int key0, int T_len, int x) {
-  if (key0 + HopperAttn::KEYS <= T_len) return;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      if (key0 + 8 * j + 2 * x + e >= T_len) s[4 * j + e] = s[4 * j + 2 + e] = -INFINITY;
-}
-
 // the thread's max over its values of rows g (i = 0) and g + 8 (i = 1)
 __device__ __forceinline__ void tile_max(const float (&s)[32], float (&mx)[2]) {
 #pragma unroll
@@ -331,24 +303,6 @@ __device__ __forceinline__ void exp_k1(float (&s)[32], const float (&m)[2], floa
   }
 }
 
-// a / b correctly rounded, given rb = 1 / b correctly rounded, b >= 1:
-// Markstein's correction of a rb by the exact remainder a - b q, in five
-// instructions (UNIT) instead of the division's subroutine. The remainder must not
-// underflow, so a is first scaled by 2^64 (exact) and the quotient scaled
-// back: every quotient in the normal range is the IEEE quotient (theory and
-// gw_attention_div below, which chip_smoke.py holds against the IEEE
-// division); one below 2^-126 may differ in its last bit.
-// UNIT: 0 <= a <= 1 (K1's e), always scaled; else any a (K3's output),
-// scaled when |a| < 2^-64.
-template <bool UNIT>
-__device__ __forceinline__ float div_rn(float a, float b, float rb) {
-  const bool scale = UNIT || fabsf(a) < 0x1p-64f;
-  if (scale) a = __fmul_rn(a, 0x1p64f);
-  const float q = __fmul_rn(a, rb);
-  const float r = __fmaf_rn(__fmaf_rn(-q, b, a), rb, q);
-  return scale ? __fmul_rn(r, 0x1p-64f) : r;
-}
-
 // K1's p of one tile from e = exp(s - m): p = round(e / l), packed as in p_k3.
 __device__ __forceinline__ void p_k1(const float (&e)[32], const float (&l)[2], const float (&rl)[2],
                                      uint32_t (&p)[4][4]) {
@@ -369,7 +323,8 @@ __global__ void __launch_bounds__(HopperAttn::THREADS, 1)
 hopper_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int T_len,
-                        int H, int n_qt, int n_items, int ld_out) {
+                        int H, int n_qt, int n_items, int ld_out, float* __restrict__ row_m,
+                        float* __restrict__ row_l, float* __restrict__ o32, int Tp) {
   typedef HopperAttn L;
   using namespace hopper;
   extern __shared__ unsigned char smem_raw[];
@@ -471,7 +426,7 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
           for (int c = 2 * half; c < 2 * half + 2; ++c) {
             reg_fence(s[c]);
-            mask_tile(s[c], c * L::KEYS, T_len, x);
+            mask_cols(s[c], c * L::KEYS, T_len, x);
             tile_max(s[c], m);
           }
         }
@@ -538,7 +493,7 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap qmap,
         auto take1 = [&](float (&cur)[32], int i) {
           reg_fence(cur);
           release();
-          mask_tile(cur, i * L::KEYS, T_len, x);
+          mask_cols(cur, i * L::KEYS, T_len, x);
           float mx[2] = {-INFINITY, -INFINITY};
           tile_max(cur, mx);
 #pragma unroll
@@ -560,7 +515,7 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap qmap,
         auto take2 = [&](float (&cur)[32], int i) {
           reg_fence(cur);
           if (i > 0) release();
-          mask_tile(cur, i * L::KEYS, T_len, x);
+          mask_cols(cur, i * L::KEYS, T_len, x);
           if constexpr (K1) {
             exp_k1<false>(cur, m, l);
             p_k1(cur, l, rl, p);
@@ -629,6 +584,20 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                      : pack_bf16(div_rn<false>(a, l[i], rl[i]), div_rn<false>(c, l[i], rl[i]));
         }
         const int t = row0 + 8 * i;
+        if constexpr (K1) {
+          if (o32 != nullptr) {  // the backward's row state (attention_bwd.cu)
+            if (x == 0 && t < Tp) {
+              row_m[(long long)bh * Tp + t] = m[i];
+              row_l[(long long)bh * Tp + t] = l[i];
+            }
+            float* dst32 = o32 + (((long long)b * T_len + t) * H + h) * L::HD + 2 * x;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              if (t < T_len)
+                *reinterpret_cast<float2*>(dst32 + 8 * j) =
+                    make_float2(o_acc[4 * j + 2 * i], o_acc[4 * j + 2 * i + 1]);
+          }
+        }
         bf16* dst = o + ((long long)b * T_len + t) * ld_out + (long long)h * L::HD;
 #pragma unroll
         for (int grp = 0; grp < 2; ++grp) {
@@ -644,7 +613,8 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <bool K1, bool ONE_PASS>
 static int launch_hopper(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
-                         void* o, int B, int T_len, int H, int ld_out, cudaStream_t stream) {
+                         void* o, int B, int T_len, int H, int ld_out, float* const (&state)[3],
+                         int ld_state, cudaStream_t stream) {
   typedef HopperAttn L;
   auto kernel = hopper_attention_kernel<K1, ONE_PASS>;
   // once a device: the shared-memory attribute, the register check and the
@@ -670,28 +640,24 @@ static int launch_hopper(const CUtensorMap& qm, const CUtensorMap& km, const CUt
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int grid = (int)(items < sms[dev] ? items : sms[dev]);
   kernel<<<grid, L::THREADS, L::SMEM, stream>>>(qm, km, vm, static_cast<bf16*>(o), T_len, H, n_qt,
-                                                (int)items, ld_out);
+                                                (int)items, ld_out, state[0], state[1], state[2], ld_state);
   return (int)cudaGetLastError();
 }
 
 // the tensor maps (64, H, T, B) of q, k and v over their row strides
 static int encode_maps(CUtensorMap (&maps)[3], const void* q, const void* k, const void* v, int B,
                        int T_len, int H, int ld_in) {
-  typedef HopperAttn L;
-  const cuuint64_t dims[4] = {(cuuint64_t)L::HD, (cuuint64_t)H, (cuuint64_t)T_len, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {L::HD * sizeof(bf16), (cuuint64_t)ld_in * sizeof(bf16),
-                                 (cuuint64_t)T_len * ld_in * sizeof(bf16)};
-  const cuuint32_t box[4] = {L::HD, 1, L::ROWS, 1};
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
-    const int err = hopper::tma_map_bf16_4d(&maps[i], bases[i], dims, strides, box);
+    const int err = hopper::tma_map_heads(&maps[i], bases[i], B, T_len, H, ld_in);
     if (err) return err;
   }
   return 0;
 }
 
 static int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int T_len,
-                       int H, int ld_in, int ld_out, int k1, cudaStream_t stream) {
+                       int H, int ld_in, int ld_out, int k1, float* const (&state)[3], int ld_state,
+                       cudaStream_t stream) {
   CUtensorMap maps[3];
   const int err = encode_maps(maps, q, k, v, B, T_len, H, ld_in);
   if (err) return err;
@@ -701,10 +667,14 @@ static int launch_bf16(const void* q, const void* k, const void* v, void* o, int
   const bool one = T_len <= HopperAttn::ONE_PASS_MAX_T;
 #endif
   if (k1)
-    return one ? launch_hopper<true, true>(maps[0], maps[1], maps[2], o, B, T_len, H, ld_out, stream)
-               : launch_hopper<true, false>(maps[0], maps[1], maps[2], o, B, T_len, H, ld_out, stream);
-  return one ? launch_hopper<false, true>(maps[0], maps[1], maps[2], o, B, T_len, H, ld_out, stream)
-             : launch_hopper<false, false>(maps[0], maps[1], maps[2], o, B, T_len, H, ld_out, stream);
+    return one ? launch_hopper<true, true>(maps[0], maps[1], maps[2], o, B, T_len, H, ld_out, state, ld_state,
+                                           stream)
+               : launch_hopper<true, false>(maps[0], maps[1], maps[2], o, B, T_len, H, ld_out, state, ld_state,
+                                            stream);
+  return one ? launch_hopper<false, true>(maps[0], maps[1], maps[2], o, B, T_len, H, ld_out, state, ld_state,
+                                          stream)
+             : launch_hopper<false, false>(maps[0], maps[1], maps[2], o, B, T_len, H, ld_out, state, ld_state,
+                                           stream);
 }
 
 // out[i] = round(exp(x)) in bf16 as K3's p takes it, x the bf16 with bits i
@@ -756,15 +726,28 @@ extern "C" int gw_attention_exp_bf16(void* out, void* stream) {
 // projection passes its three column blocks with ld_in = 3*H*64); o likewise
 // with ld_out. Head dim 64; ld_in and ld_out multiples of 8 and the pointers
 // 16-byte aligned. k1 = 1 takes K1's softmax contract, 0 K3's (see the top
-// of this file). Returns a cudaError_t.
-extern "C" int gw_attention(const void* q, const void* k, const void* v, void* o, int B,
-                            int T_len, int H, int ld_in, int ld_out, int dtype, int k1,
-                            void* stream) {
+// of this file).
+// row_m, row_l, o32: null, or (bf16 under K1 only) the row state the
+// backward (attention_bwd.cu) reads instead of recomputing it: the exact
+// row max and the f32 row sum, B*H x ld_state f32 each (ld_state, the
+// caller's, must be T rounded up to 64; every row below it is written, rows
+// past T of a zero query), and the f32 output before its rounding,
+// (B, T, H, 64) contiguous. Values the kernel holds in registers anyway; the
+// output's bits do not change. ld_state is ignored without the state.
+// Returns a cudaError_t.
+extern "C" int gw_attention(const void* q, const void* k, const void* v, void* o, void* row_m,
+                            void* row_l, void* o32, int B, int T_len, int H, int ld_in, int ld_out,
+                            int ld_state, int dtype, int k1, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T_len <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const bool save = row_m != nullptr || row_l != nullptr || o32 != nullptr;
+  if (save && (row_m == nullptr || row_l == nullptr || o32 == nullptr || dtype != GW_BF16 || !k1 ||
+               ld_state != (T_len + 63) / 64 * 64))
+    return (int)cudaErrorInvalidValue;
   if (dtype == GW_F32)
     return k1 ? gw::launch_f32<true>(q, k, v, o, B, T_len, H, ld_in, ld_out, s)
               : gw::launch_f32<false>(q, k, v, o, B, T_len, H, ld_in, ld_out, s);
-  if (dtype == GW_BF16) return gw::launch_bf16(q, k, v, o, B, T_len, H, ld_in, ld_out, k1, s);
+  float* const state[3] = {static_cast<float*>(row_m), static_cast<float*>(row_l), static_cast<float*>(o32)};
+  if (dtype == GW_BF16) return gw::launch_bf16(q, k, v, o, B, T_len, H, ld_in, ld_out, k1, state, ld_state, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,10 +2,9 @@
 // matrix multiply (wgmma), the Tensor Memory Accelerator (TMA) and the
 // shared-memory barriers (mbarrier) that tie them together.
 //
-// Kernel A (attention.cu) is the first user. The redesigns queued after it
-// are meant to reuse this header as it stands: kernel D (attention
-// backward: the same Q K^T and P V products, plus dS^T Q), kernel E (int8:
-// the same TMA ring; an s8 wgmma form is added beside the bf16 ones),
+// Kernel A (attention.cu) and kernel D (attention_bwd.cu) use it. The
+// redesigns queued after them are meant to reuse it as it stands: kernel E
+// (int8: the same TMA ring; an s8 wgmma form is added beside the bf16 ones),
 // kernel C (fused MLP) and kernel B (LayerNorm + GEMM).
 //
 // What is here:
@@ -20,8 +19,13 @@
 //    (RS), f32 accumulation in 32 registers a thread;
 //  * mbarrier init, arrive, arrive with an expected byte count, and the
 //    parity wait;
-//  * the 4-D TMA tile load, and on the host the tensor-map encoding through
-//    cudaGetDriverEntryPoint, so no library links libcuda.
+//  * the 4-D TMA tile load and the plain bulk copy (contiguous bytes), and
+//    on the host the tensor-map encoding through cudaGetDriverEntryPoint,
+//    so no library links libcuda; the (64, H, T, B) map of attention's
+//    row-strided q, k, v and dO;
+//  * accumulator-fragment helpers shared by the attention kernels: quad
+//    max, sum and transpose, column masking, and the correctly rounded
+//    division through a reciprocal (div_rn).
 //
 // Fragment layouts (PTX ISA, "wgmma" register fragments), for thread
 // `lane` of warp w of the warpgroup, g = lane / 4, x = lane % 4:
@@ -38,6 +42,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace gw {
@@ -198,6 +203,73 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Copy `bytes` contiguous bytes from global memory to shared memory at dst,
+// completing them on `bar` (both addresses 16-byte aligned, bytes a
+// multiple of 16).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
+
+// --- accumulator fragments -------------------------------------------------------
+// A quad is the four lanes x = lane % 4 that share rows g and g + 8.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Transpose a 4 x 4 block of 32-bit words across the four lanes of a quad:
+// afterwards lane x holds in a[y] what lane y held in a[x].
+__device__ __forceinline__ void quad_transpose(uint32_t (&a)[4], int x) {
+#pragma unroll
+  for (int d = 1; d <= 2; d <<= 1) {
+    const bool upper = (x & d) != 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i & d) continue;
+      const uint32_t recv = __shfl_xor_sync(0xffffffffu, upper ? a[i] : a[i | d], d);
+      if (upper)
+        a[i] = recv;
+      else
+        a[i | d] = recv;
+    }
+  }
+}
+
+// Columns at or beyond `limit` of a 64-column accumulator tile whose first
+// column is col0 become -inf (d[4j + 2i + e] is column 8j + 2x + e).
+__device__ __forceinline__ void mask_cols(float (&s)[32], int col0, int limit, int x) {
+  if (col0 + 64 <= limit) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (col0 + 8 * j + 2 * x + e >= limit) s[4 * j + e] = s[4 * j + 2 + e] = -INFINITY;
+}
+
+// a / b correctly rounded, given rb = 1 / b correctly rounded, b >= 1:
+// Markstein's correction of a rb by the exact remainder a - b q, in five
+// instructions (UNIT) instead of the division's subroutine. The remainder must not
+// underflow, so a is first scaled by 2^64 (exact) and the quotient scaled
+// back: every quotient in the normal range is the IEEE quotient (theory and
+// gw_attention_div in attention.cu, which chip_smoke.py holds against the
+// IEEE division); one below 2^-126 may differ in its last bit.
+// UNIT: 0 <= a <= 1 (K1's e), always scaled; else any a (K3's output),
+// scaled when |a| < 2^-64.
+template <bool UNIT>
+__device__ __forceinline__ float div_rn(float a, float b, float rb) {
+  const bool scale = UNIT || fabsf(a) < 0x1p-64f;
+  if (scale) a = __fmul_rn(a, 0x1p64f);
+  const float q = __fmul_rn(a, rb);
+  const float r = __fmaf_rn(__fmaf_rn(-q, b, a), rb, q);
+  return scale ? __fmul_rn(r, 0x1p-64f) : r;
+}
+
 // --- host: tensor maps ---------------------------------------------------------
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -233,6 +305,17 @@ inline int tma_map_bf16_4d(CUtensorMap* map, const void* base, const cuuint64_t 
                   box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The map (64, H, T, B) of a row-strided (B, T, H, 64) bf16 view: row t of
+// sequence b, head h at base + (b T + t) ld + 64 h; a box is 64 rows of one
+// (sequence, head), rows at or beyond T arriving as zeros.
+inline int tma_map_heads(CUtensorMap* map, const void* base, int B, int T_len, int H, int ld) {
+  const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)T_len, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {64 * sizeof(__nv_bfloat16), (cuuint64_t)ld * sizeof(__nv_bfloat16),
+                                 (cuuint64_t)T_len * ld * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  return tma_map_bf16_4d(map, base, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -25,6 +25,8 @@ from typing import Iterator, Sequence, Tuple
 import numpy as np
 import torch
 
+from gwkit_torch.device import DeviceLike, resolve_device
+
 WAVE_LABEL = (1.0, 0.0)
 NOISE_LABEL = (0.0, 1.0)
 
@@ -35,14 +37,16 @@ def _uniform(generator: torch.Generator, shape, lo: float, hi: float, device) ->
 
 @dataclasses.dataclass
 class InjectionDataset:
-    """noises [N, D, T], waveforms [M, D, T]; the first M indices are injections."""
+    """noises [N, D, T], waveforms [M, D, T]; the first M indices are
+    injections. ``device=None`` is the CUDA card (raises without one)."""
 
     noises: torch.Tensor
     waveforms: torch.Tensor
     snr_range: Tuple[float, float] = (5.0, 15.0)
-    device: torch.device = torch.device("cpu")
+    device: DeviceLike = None
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
         as_f32 = lambda a: (a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a)))
         self.noises = as_f32(self.noises).float().to(self.device)
         self.waveforms = as_f32(self.waveforms).float().to(self.device)
@@ -100,7 +104,7 @@ class InjectionDataset:
 
     @classmethod
     def load(cls, h5file, group_name: str, snr_range=(5.0, 15.0),
-             device: torch.device = torch.device("cpu")) -> "InjectionDataset":
+             device: DeviceLike = None) -> "InjectionDataset":
         if group_name not in h5file:
             raise IOError(f"Group '{group_name}' not found.")
         g = h5file[group_name]
@@ -109,7 +113,7 @@ class InjectionDataset:
 
 
 def concat_datasets(datasets: Sequence[InjectionDataset], snr_range=(5.0, 15.0),
-                    device: torch.device = torch.device("cpu")) -> InjectionDataset:
+                    device: DeviceLike = None) -> InjectionDataset:
     """Several datasets as one, re-packed so that every injection row comes
     first (the index convention of :class:`InjectionDataset`)."""
     cpu = lambda t: t.cpu().numpy()
@@ -119,17 +123,17 @@ def concat_datasets(datasets: Sequence[InjectionDataset], snr_range=(5.0, 15.0),
     return InjectionDataset(noises=noises, waveforms=waveforms, snr_range=snr_range, device=device)
 
 
-def load_concat_datasets(paths: Sequence[str], snr_range=(5.0, 15.0),
-                         device: torch.device = torch.device("cpu")):
+def load_concat_datasets(paths: Sequence[str], snr_range=(5.0, 15.0), device: DeviceLike = None):
     """Every HDF5 file's ``training`` and ``validation`` groups, concatenated:
-    (train, valid) on ``device``."""
+    (train, valid) on ``device``; each file is staged on the CPU first."""
     import h5py
 
+    device = resolve_device(device)
     trains, valids = [], []
     for path in paths:
         with h5py.File(path, "r") as f:
-            trains.append(InjectionDataset.load(f, "training", snr_range))
-            valids.append(InjectionDataset.load(f, "validation", snr_range))
+            trains.append(InjectionDataset.load(f, "training", snr_range, "cpu"))
+            valids.append(InjectionDataset.load(f, "validation", snr_range, "cpu"))
     return concat_datasets(trains, snr_range, device), concat_datasets(valids, snr_range, device)
 
 

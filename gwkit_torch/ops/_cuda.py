@@ -39,8 +39,8 @@ PLAIN_CALLS: Dict[str, int] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "attention": ("gw_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "attention_bwd": ("gw_attention_bwd", [_P] * 8 + [_I] * 7 + [_P]),
+    "attention": ("gw_attention", [_P] * 7 + [_I] * 8 + [_P]),
+    "attention_bwd": ("gw_attention_bwd", [_P] * 11 + [_I] * 8 + [_P]),
     "ln_gemm": ("gw_ln_gemm", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "fused_mlp": ("gw_fused_mlp", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "int8_gemm": ("gw_int8_gemm", [_P] * 8 + [_I] * 5 + [_P]),

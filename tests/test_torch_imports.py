@@ -50,6 +50,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     import numpy as np
 
     from gwkit_torch.cli import inference
+    from gwkit_torch.data.datasets import InjectionDataset, concat_datasets
     from gwkit_torch.device import resolve_device
     from gwkit_torch.models.qadapter import QAdapterConfig
     from gwkit_torch.models.whisper import WhisperConfig
@@ -77,6 +78,11 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         DeviceSlicer(seg)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_mlgwsc(WhisperConfig(), QAdapterConfig(), {})
+    rows = np.zeros((2, 2, 8), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InjectionDataset(rows, rows)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        concat_datasets([InjectionDataset(rows, rows, device="cpu")])
     from gwkit_torch.cli import train_mlgwsc
 
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -119,7 +119,8 @@ def test_injection_dataset_mixing_semantics():
 
     rng = np.random.default_rng(0)
     noises = rng.normal(size=(10, 2, 64)).astype(np.float32)
-    ds = InjectionDataset(noises=noises, waveforms=np.ones((4, 2, 64), np.float32), snr_range=(3.0, 3.0))
+    ds = InjectionDataset(noises=noises, waveforms=np.ones((4, 2, 64), np.float32), snr_range=(3.0, 3.0),
+                          device="cpu")
     x, y, snr = ds.sample_batch(torch.Generator().manual_seed(0), torch.arange(10))
     np.testing.assert_allclose(x[:4].numpy(), noises[:4] + 3.0, rtol=1e-6)
     np.testing.assert_array_equal(x[4:].numpy(), noises[4:])
@@ -133,7 +134,7 @@ def test_injection_dataset_mixing_semantics():
     s = batches[0][2].numpy()
     assert ((s >= 5.0) & (s <= 15.0)).all() and len(set(s.tolist())) == 4
     # noise-only
-    pure = InjectionDataset(noises=noises[:8], waveforms=np.zeros((0, 2, 64), np.float32))
+    pure = InjectionDataset(noises=noises[:8], waveforms=np.zeros((0, 2, 64), np.float32), device="cpu")
     (x, y, snr), = list(pure.batches(torch.Generator().manual_seed(0), 8, shuffle=False))
     np.testing.assert_array_equal(x.numpy(), noises[:8])
     np.testing.assert_array_equal(y.numpy(), [[0, 1]] * 8)
@@ -157,7 +158,7 @@ def test_concat_keeps_injections_first(tmp_path):
         paths.append(path)
     from gwkit.data.datasets import load_concat_datasets as gw_load
 
-    got, want = load_concat_datasets(paths), gw_load(paths)
+    got, want = load_concat_datasets(paths, device="cpu"), gw_load(paths)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.noises.numpy(), np.asarray(b.noises))
         np.testing.assert_array_equal(a.waveforms.numpy(), np.asarray(b.waveforms))
