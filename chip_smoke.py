@@ -6,20 +6,25 @@ Phases, each printing one JSON line:
   1 device   the card, its power limit, torch/CUDA versions, TF32 flags
              (both turned off for the f32 phases);
   2 build    nvcc for sm_90a of every kernel source, all at once; each
-             kernel's registers and spill bytes (the bf16 kernels of A and
-             D must not spill and must run on wgmma: HGMMA in their SASS);
+             kernel's registers and spill bytes (the bf16 kernels of A, B,
+             C and D must be there, must not spill and must run on wgmma:
+             HGMMA in their SASS);
   3 parity   kernel A's K3 exp against expf on every bf16 input and its
              K1 division against the IEEE quotient; each
              hand-written kernel against its plain PyTorch version on
              the card, f32 and bf16, at the main path's shapes (one
-             whisper-tiny layer over 256 sequences x 256 tokens); kernel A
+             whisper-tiny layer over 256 sequences x 256 tokens), B and C
+             with the profiler's device time and cuBLAS's bare products of
+             the same operands beside them (gemm_ms), and again on 3 x 200
+             rows (B with and without LN and residual, C under both GELUs,
+             at D = 384 and 512); kernel A
              on its one-pass (T = 200, 256) and two-pass paths (T = 300,
              1500) under both contracts, in place and contiguous, score
              scales 1 and 60 (1e-3..1e3 at T = 1500), and at the training
              forward's shapes (64 and 128 x 6 x T = 256, K1), with times
              (CUDA events around a call, and the profiler's device time,
              the median of repeated calls) at T = 1500 and at the training
-             forward, and its host work a call; whisper-base width
+             forward, and A's, B's and C's host work a call; whisper-base width
              (D = 512, T = 1500), with times; the attention backward
              (kernel D) at the training shapes (128 sequences x 6 heads x
              T = 256) and at T = 1500, score scales 1e-3..1e3, in bf16
@@ -51,7 +56,7 @@ Phases, each printing one JSON line:
              kernel group;
   6 kernels  one line per the kernel table (times, bound, launches);
              kernel E's ms, plain ms, bound and int_mm_ms are the sums of
-             its four launches a layer;
+             its four launches a layer, kernel B's of its two;
 then the card's name and power limit, and the result line last.
 Fails (non-zero exit, no result line) on any disagreement, and without CUDA.
 """
@@ -83,6 +88,9 @@ H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak
 H100_BYTES = 3.35e12      # HBM3
 CAPSTONE = "artifacts/capstone_r5"
 KERNELS = ("attention", "attention_bwd", "ln_gemm", "fused_mlp", "int8_gemm")
+# the bf16 wgmma kernels the build phase must find, each spill-free with HGMMA
+HOPPER_KERNELS = ("hopper_attention_kernel", "hopper_dq_kernel", "hopper_dkdv_kernel", "hopper_ln_gemm_kernel",
+                  "hopper_fused_mlp_kernelILi384", "hopper_fused_mlp_kernelILi512")
 SOURCES = {name: f"gwkit_torch/csrc/{name}.cu" for name in KERNELS}
 REPLACES = {"attention": "gwkit/ops/attention.py:30", "attention_bwd": "gwkit/ops/attention.py:93",
             "ln_gemm": "gwkit/ops/fused_block.py:112", "fused_mlp": "gwkit/ops/fused_mlp.py:31",
@@ -241,7 +249,7 @@ def build_phase(checks):
     for name, path in paths.items():
         log = path.with_suffix(".log").read_text() if path.with_suffix(".log").is_file() else ""
         funcs, warnings = _ptxas(log)
-        for f in funcs:  # the bf16 kernels of A and D: no spills, products on wgmma (HGMMA)
+        for f in funcs:  # the bf16 kernels of A, B, C and D: no spills, products on wgmma (HGMMA)
             if "hopper_" in f["function"]:
                 sass = _sass(path, f["function"])
                 f["hgmma_instructions"] = sass.count("HGMMA")
@@ -250,11 +258,11 @@ def build_phase(checks):
                 ok = ok and f.get("spill_bytes") == 0 and f["hgmma_instructions"] > 0
         ptxas[name] = {"functions": funcs, "warnings": warnings}
     names = [f["function"] for fs in ptxas.values() for f in fs["functions"]]
-    ok = ok and all(any(kernel in n for n in names) for kernel in ("hopper_dq_kernel", "hopper_dkdv_kernel"))
+    ok = ok and all(any(kernel in n for n in names) for kernel in HOPPER_KERNELS)
     emit("build", seconds=seconds, libraries=[p.name for p in paths.values()], ptxas=ptxas,
          bf16_hopper_kernels_spill_free_on_hgmma=ok)
     if not ok:
-        checks.failed.append("kernel A or D bf16: spills or no HGMMA")
+        checks.failed.append("a bf16 Hopper kernel (A, B, C or D) missing, spilling or without HGMMA")
 
 
 def _layer(D, F, H, rng, dora):
@@ -355,16 +363,26 @@ def parity_phase(checks):
         timing["attention"].update(
             device_ms=device_ms(lambda: A.attention_from_qkv(qkv.view(Bs, T, 3 * D), H)),
             library_device_ms=device_ms(sdpa))
+        # B's two launches and C as one call each; beside them cuBLAS's bare
+        # products of the same operands (no LN, bias, GELU or residual)
+        b_layer = lambda: (FB.ln_gemm(x2, layer.wqkv, layer.bqkv, ln=ln1), FB.ln_gemm(att2, layer.wo, layer.bo, residual=x2))
+        b_gemm = lambda: (torch.matmul(x2, layer.wqkv), torch.matmul(att2, layer.wo))
+        h_mid = torch.empty(M, F, dtype=dt, device="cuda")
+        c_gemm = lambda: torch.matmul(torch.matmul(x1, layer.w1, out=h_mid), layer.w2)
+        for name, call, gemm in (("ln_gemm", b_layer, b_gemm),
+                                 ("fused_mlp", lambda: FM.fused_mlp_block(*mlp_args, approx=True), c_gemm)):
+            timing[name].update(device_ms=device_ms(call), gemm_ms=median_ms(gemm), gemm_device_ms=device_ms(gemm))
         for name, t in timing.items():
             b_ms = sum(b for b, _ in t["bound"])
             by = t["bound"][0][1]
             rec = dict(name=name, dtype=tag, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=b_ms,
                        bound_by=by, library_ms=t["library_ms"], max_abs_err=t["max_abs_err"])
-            dev = {k: t[k] for k in ("device_ms", "library_device_ms") if k in t}
+            dev = {k: t[k] for k in ("device_ms", "library_device_ms", "gemm_ms", "gemm_device_ms") if k in t}
             emit("timing", shapes="main path layer (256 seq x 256 tokens, D=384, H=6, F=1536)", **rec, **dev)
             if dt == torch.bfloat16:
-                records[name] = rec
+                records[name] = {**rec, **dev}
 
+        ragged_checks(checks, rng, dt)
         attention_checks(checks, rng, dt)
 
         # K2 and K4 at whisper-base width (D=512, H=8, F=2048, T=1500)
@@ -388,6 +406,38 @@ def parity_phase(checks):
         del xb, pb, adb, lb
         torch.cuda.empty_cache()
     return records
+
+
+# kernels B and C on 3 x 200 rows: not a multiple of C's 64-row panel, of
+# B's 128-row panel or of a two-block cluster's rows
+RAGGED_ROWS = 3 * 200
+
+
+def ragged_checks(checks, rng, dt):
+    """Kernels B and C against their plain versions at RAGGED_ROWS rows,
+    whisper-tiny and whisper-base widths: B with and without its LN and its
+    residual (LN1 + QKV, the o-projection, both, neither), C under both
+    GELUs."""
+    tol, tag, M = TOL[dt], "f32" if dt == torch.float32 else "bf16", RAGGED_ROWS
+    normal = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda().to(dt)
+    for D in (384, 512):
+        p, ad = _layer(D, 4 * D, D // 64, rng, True)
+        layer = FB.fold_layer(p, ad, D // 64, dt)
+        x2, att = normal(M, D), normal(M, D)
+        ln1 = (layer.ln1_g, layer.ln1_b)
+        for ln, res in ((True, False), (False, True), (True, True), (False, False)):
+            w, bias = (layer.wqkv, layer.bqkv) if ln and not res else (layer.wo, layer.bo)
+            inp, residual = (x2, att if res else None) if ln else (att, x2 if res else None)
+            checks.compare(f"B ragged M={M} D={D} ln={ln} residual={res} {tag}",
+                           FB.ln_gemm(inp, w, bias, ln=ln1 if ln else None, residual=residual),
+                           FB._ln_gemm_reference(inp, w, bias, ln1 if ln else None, residual), tol)
+        x3 = x2.view(1, M, D)
+        for approx in (True, False):
+            checks.compare(f"C ragged M={M} D={D} {'tanh' if approx else 'erf'} {tag}",
+                           FM.fused_mlp_block(x3, layer.ln2_g, layer.ln2_b, layer.w1, layer.b1, layer.w2, layer.b2,
+                                              approx=approx),
+                           FM._unfused(x3, layer.ln2_g, layer.ln2_b, layer.w1, layer.b1.to(dt), layer.w2,
+                                       layer.b2.to(dt), approx), tol)
 
 
 # kernel A's checks: (T, sequences, score scales). T = 200 and 256 take the
@@ -470,26 +520,49 @@ def attention_checks(checks, rng, dt):
     torch.cuda.empty_cache()
 
 
+def _per_call_us(call, calls):
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
 def host_cost(lib, n=20000, calls=2000):
-    """Kernel A's host work a call, on the host clock: the three tensor-map
+    """Host work a call, on the host clock: kernel A's three tensor-map
     encodings of the bf16 path (gw_attention_encode_maps, n times), and the
-    whole flash_attention call at 1 x 6 heads x T = 64, where the device's
-    work is far shorter than the host's."""
+    whole flash_attention call at 1 x 6 heads x T = 64, kernel B's ln_gemm
+    (LN1 + QKV) and kernel C's fused_mlp_block on 64 rows at D = 384, where
+    the device's work is far shorter than the host's; with B's and C's
+    cluster size and the clusters resident on the card at once."""
     lib.gw_attention_encode_maps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
     q, k, v = (torch.zeros(1, 64, 6, 64, dtype=torch.bfloat16, device="cuda") for _ in range(3))
     _cuda.check(lib.gw_attention_encode_maps(q.data_ptr(), k.data_ptr(), v.data_ptr(), 1, 64, 6, 384, 10), "maps")
     t0 = time.perf_counter()
     _cuda.check(lib.gw_attention_encode_maps(q.data_ptr(), k.data_ptr(), v.data_ptr(), 1, 64, 6, 384, n), "maps")
     maps_us = (time.perf_counter() - t0) / n * 1e6
-    A.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        A.flash_attention(q, k, v)
-    torch.cuda.synchronize()
-    call_us = (time.perf_counter() - t0) / calls * 1e6
+    call_us = _per_call_us(lambda: A.flash_attention(q, k, v), calls)
+    zeros = lambda *sh, dt=torch.bfloat16: torch.zeros(*sh, dtype=dt, device="cuda")
+    D, F = 384, 1536
+    x, g, b = zeros(64, D), zeros(D), zeros(D)
+    w, bias, w1, b1, w2, b2 = zeros(D, 3 * D), zeros(3 * D, dt=torch.float32), zeros(D, F), \
+        zeros(F, dt=torch.float32), zeros(F, D), zeros(D, dt=torch.float32)
+    ln_gemm_us = _per_call_us(lambda: FB.ln_gemm(x, w, bias, ln=(g, b)), calls)
+    fused_mlp_us = _per_call_us(lambda: FM.fused_mlp_block(x.view(1, 64, D), g, b, w1, b1, w2, b2, approx=True),
+                                calls)
+    clusters = {}
+    for name, fn, args in (("ln_gemm", "gw_ln_gemm_clusters", ()), ("fused_mlp", "gw_fused_mlp_clusters", (D,))):
+        f = getattr(_cuda.library(name), fn)
+        f.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p] * 2
+        size, resident = ctypes.c_int(), ctypes.c_int()
+        _cuda.check(f(*args, ctypes.byref(size), ctypes.byref(resident)), fn)
+        clusters[name] = {"cluster_size": size.value, "clusters_resident": resident.value}
     emit("timing", name="attention host work", dtype="bf16", tensor_maps_us_per_call=maps_us,
-         flash_attention_us_per_call=call_us, shapes="1 seq x 6 heads x T=64")
+         flash_attention_us_per_call=call_us, shapes="1 seq x 6 heads x T=64",
+         ln_gemm_us_per_call=ln_gemm_us, fused_mlp_us_per_call=fused_mlp_us,
+         ln_gemm_fused_mlp_shapes="64 rows, D=384 (B: LN1 + QKV, N=1152; C: F=1536)", clusters=clusters)
 
 
 def arithmetic_checks(checks):
@@ -1224,8 +1297,8 @@ def main():
         # each kernel's launches on its own path: the search (forward), the
         # int8 search for kernel E, training for the attention backward
         main_path = {"attention_bwd": train, "int8_gemm": search_int8}.get(name, search)
-        extra = {key: r[key] for key in ("int_mm_ms", "device_ms", "library_device_ms", "standalone_ms",
-                                         "standalone_device_ms", "standalone_plain_ms") if key in r}
+        extra = {key: r[key] for key in ("int_mm_ms", "gemm_ms", "gemm_device_ms", "device_ms", "library_device_ms",
+                                         "standalone_ms", "standalone_device_ms", "standalone_plain_ms") if key in r}
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": main_path[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

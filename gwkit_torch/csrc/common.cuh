@@ -1,16 +1,13 @@
-// Shared device helpers for the gwkit_torch Hopper kernels.
+// Shared device helpers for the gwkit_torch kernels.
 //
-// Every kernel runs 256 threads (8 warps) per block and builds its products
-// from one primitive, Acc<T, BM, BN>: a (BM, BN) float32 accumulator tile
-// that adds A_s (BM, depth) x B_s (depth, BN), both operands in shared
-// memory, and finally stores itself to a float32 tile in shared memory.
-//  * bfloat16: WMMA 16x16x16 tensor-core fragments with f32 accumulation
-//    (mma.sync underneath); each warp owns a 32-row by BN/4-column tile, so
-//    every A fragment it loads serves BN/64 products and every B fragment 2.
-//  * float32: plain f32 FMA, register-blocked per thread (no TF32), so the
-//    f32 path can be held to f32 tolerances.
-// Epilogues then work element-wise on the f32 tile, so both types share one
-// arithmetic order for everything but the products themselves.
+// The float32 kernels (and kernel E's prologue and epilogue) run 256
+// threads (8 warps) per block. The f32 kernels build their products from
+// one primitive, Acc<float, BM, BN>: a (BM, BN) float32 accumulator tile,
+// plain f32 FMA register-blocked per thread (no TF32, so the f32 path can
+// be held to f32 tolerances), that adds A_s (BM, depth) x B_s (depth, BN),
+// both operands in shared memory, and finally stores itself to a float32
+// tile in shared memory; epilogues then work element-wise on that tile.
+// (The bf16 kernels run on wgmma: hopper.cuh.)
 // Global -> shared copies are 16-byte cp.async (zero-filled outside the
 // valid rows and columns), so kernels can overlap the next tile's copy
 // with the current tile's products.
@@ -22,7 +19,6 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
 
 namespace gw {
 
@@ -172,54 +168,6 @@ template <int BM, int BN> struct Acc<float, BM, BN> {
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < RN; ++j) C[(ty + 16 * i) * ldc + tx + 16 * j] = c[i][j];
-  }
-};
-
-// bfloat16: WMMA fragments; the 8 warps form a (BM/32) x WN grid, warp w
-// owning rows (w % WM) * 32 (two fragments) and NF column fragments from
-// (w / WM) * (BN / WN).
-template <int BM, int BN> struct Acc<bf16, BM, BN> {
-  static constexpr int WM = BM / 32, WN = kWarps / WM, NF = BN / WN / 16;
-  static_assert(BM % 32 == 0 && kWarps % WM == 0 && WN * NF * 16 == BN, "bad WMMA tiling");
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> c[2][NF];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int f = 0; f < NF; ++f) nvcuda::wmma::fill_fragment(c[i][f], 0.f);
-  }
-
-  template <bool BT>
-  __device__ __forceinline__ void mma(const bf16* A, int lda, const bf16* B, int ldb, int depth) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x >> 5;
-    const int row0 = (warp % WM) * 32, col0 = (warp / WM) * (BN / WN);
-    typedef typename std::conditional<BT, wmma::col_major, wmma::row_major>::type BLayout;
-    for (int k0 = 0; k0 < depth; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::load_matrix_sync(a[0], A + row0 * lda + k0, lda);
-      wmma::load_matrix_sync(a[1], A + (row0 + 16) * lda + k0, lda);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
-        const int n0 = col0 + f * 16;
-        wmma::load_matrix_sync(b, BT ? B + n0 * ldb + k0 : B + k0 * ldb + n0, ldb);
-        wmma::mma_sync(c[0][f], a[0], b, c[0][f]);
-        wmma::mma_sync(c[1][f], a[1], b, c[1][f]);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float* C, int ldc) const {
-    const int warp = threadIdx.x >> 5;
-    const int row0 = (warp % WM) * 32, col0 = (warp / WM) * (BN / WN);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int f = 0; f < NF; ++f)
-        nvcuda::wmma::store_matrix_sync(C + (row0 + 16 * i) * ldc + col0 + f * 16, c[i][f], ldc,
-                                        nvcuda::wmma::mem_row_major);
   }
 };
 

@@ -187,7 +187,9 @@ def ln_gemm(x2: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel B on (M, K) rows: [LN(x)] @ W (K, N) + bias (N,) [+ residual (M, N)].
-    On CUDA, W, the LN scale/shift and the residual are in x's dtype, bias f32."""
+    On CUDA, W, the LN scale/shift and the residual are in x's dtype, bias f32;
+    bfloat16 runs the wgmma/TMA kernel (``hopper_ln_gemm_kernel``), float32
+    the FMA kernel."""
     if x2.device.type == "cpu":
         return _ln_gemm_reference(x2, w, bias, ln, residual)
     ops = [x2, w, bias, residual] + list(ln or ())
@@ -197,15 +199,15 @@ def ln_gemm(x2: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise TypeError(f"ln_gemm: dtype {dt} (kernel takes float32 or bfloat16)")
     M, K = x2.shape
     N = w.shape[1]
-    if w.shape[0] != K or K % 64 or N % 8 or tuple(bias.shape) != (N,) \
+    if w.shape[0] != K or K % 64 or not 0 < K <= 512 or N % 8 or tuple(bias.shape) != (N,) \
             or bias.dtype != torch.float32 \
             or (residual is not None and tuple(residual.shape) != (M, N)):
         raise ValueError(f"ln_gemm: x {tuple(x2.shape)}, w {tuple(w.shape)}, bias "
-                         f"{tuple(bias.shape)} {bias.dtype}; K must be a multiple of 64, N of 8")
+                         f"{tuple(bias.shape)} {bias.dtype}; K must be a multiple of 64 up to 512, N of 8")
     for t in ops:
         if t is not bias and t is not None and (t.dtype != dt or not t.is_contiguous()):
             raise ValueError("ln_gemm: operands must be contiguous and share x's dtype")
-    _cuda.require_aligned("ln_gemm", x2, w)
+    _cuda.require_aligned("ln_gemm", *(t for t in (x2, w, residual) if t is not None))
     y = torch.empty((M, N), dtype=dt, device=x2.device)
     _launch_ln_gemm(_cuda.library("ln_gemm"), _cuda.stream_of(x2), x2, w, bias, ln, residual, y)
     return y

@@ -4,7 +4,8 @@
 
 On CUDA tensors ``fused_mlp_block`` runs kernel C (``csrc/fused_mlp.cu``):
 LN statistics in f32, products accumulated in f32, GELU in the compute type,
-and the (rows, F) activation kept in shared memory. On CPU tensors it runs
+and the (rows, F) activation kept in shared memory; bfloat16 on wgmma and
+TMA (``hopper_fused_mlp_kernel``, F a multiple of 128), float32 on FMA. On CPU tensors it runs
 ``_unfused``, the plain PyTorch version. The TPU kernel it replaces is
 ``gwkit/ops/fused_mlp.py::_mlp_kernel``; kernel C is also the MLP stage of
 the fused encoder block.
@@ -61,9 +62,10 @@ def fused_mlp_block(x, g, b, w1, b1, w2, b2, approx: bool = False) -> torch.Tens
         raise TypeError(f"fused_mlp_block: dtype {dt} (kernel takes float32 or bfloat16)")
     D = x.shape[-1]
     Fd = w1.shape[1]
-    if D not in KERNEL_WIDTHS or Fd % 64 or tuple(w1.shape) != (D, Fd) or tuple(w2.shape) != (Fd, D):
+    f_step = 128 if dt == torch.bfloat16 else 64
+    if D not in KERNEL_WIDTHS or Fd % f_step or tuple(w1.shape) != (D, Fd) or tuple(w2.shape) != (Fd, D):
         raise ValueError(f"fused_mlp_block: D={D} (kernel takes {KERNEL_WIDTHS}), "
-                         f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}, F a multiple of 64")
+                         f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}, F a multiple of {f_step}")
     x2 = x.reshape(-1, D).contiguous()
     ops = [t.to(dt).contiguous() for t in (g, b, w1)] + [b1.float().contiguous()] \
         + [w2.to(dt).contiguous(), b2.float().contiguous()]

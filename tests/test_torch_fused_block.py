@@ -183,3 +183,58 @@ def test_fold_layer_folds_dora_and_q_scale(setup):
                       dora_linear(h, p["k"]["w"], None, ad["k"]),
                       dora_linear(h, p["v"]["w"], p["v"]["b"], ad["v"])], dim=1)
     np.testing.assert_allclose((h @ layer.wqkv + layer.bqkv).numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("D", [64, 512])
+@pytest.mark.parametrize("ln,residual", [(True, False), (False, True), (False, False), (True, True)],
+                         ids=["ln-qkv", "o-proj-residual", "plain", "ln-residual"])
+def test_ln_gemm_matches_gwkit_stages(D, ln, residual):
+    """Kernel B's function (its plain version on the CPU) against gwkit's
+    in-kernel stage math (`_ln_f32`, `_dot`, bias in f32, the residual
+    added after the cast; fused_block.py:151-161, :236-246) on 3 x 200 =
+    600 rows, not a multiple of the card's 128-row panel: LN1 + QKV (N = 3D),
+    the o-projection with its residual and no LN, and the other two
+    combinations the kernel takes; f32, the file's tolerance, its atol
+    grown with sqrt(D / 64): the two packages sum the D products in
+    different orders (at D = 512 a residual-cancelled value differed by
+    2.4e-6)."""
+    from gwkit.ops.fused_block import _dot, _ln_f32
+
+    rng = np.random.default_rng(D + 2 * ln + residual)
+    f = lambda *s, sc=1.0: (rng.normal(size=s) * sc).astype(np.float32)
+    M, N = 3 * 200, 3 * D if ln else D
+    x, w, bias, res = f(M, D), f(D, N, sc=D ** -0.5), f(N, sc=0.1), f(M, N)
+    g, b = 1 + f(D, sc=0.1), f(D, sc=0.1)
+    got = fb.ln_gemm(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+                     ln=(torch.from_numpy(g), torch.from_numpy(b)) if ln else None,
+                     residual=torch.from_numpy(res) if residual else None).numpy()
+    h = _ln_f32(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b)) if ln else jnp.asarray(x)
+    want = (_dot(h, jnp.asarray(w)) + jnp.asarray(bias)).astype(jnp.float32)
+    if residual:
+        want = jnp.asarray(res) + want
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TOL["rtol"], atol=TOL["atol"] * (D / 64) ** 0.5)
+
+
+@pytest.mark.parametrize("approx", [False, True])
+def test_block_chain_ragged_rows_match_gwkit_fused_kernel(setup, approx):
+    """The chain B -> A -> B -> C on 3 sequences x T = 200 (600 rows: a
+    ragged last row panel for kernels B and C, a ragged key tile for A),
+    with DoRA, against gwkit's whole-layer kernel in interpret mode."""
+    gw_p, gw_ad, p, ad = setup
+    x = np.random.default_rng(13).normal(size=(3, 200, 64)).astype(np.float32)
+    got = fb.fused_encoder_block(torch.from_numpy(x), p, CFG.n_heads, ad, approx=approx).numpy()
+    want = gw_fused_block(jnp.asarray(x), gw_p, CFG.n_heads, gw_ad, approx=approx, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_attention_only_chain_ragged_rows_pairs_with_mlp(setup):
+    """skip_mlp (K4's counterpart, B -> A -> B) then the MLP on 3 x 200
+    rows is gwkit's whole layer, as test_attention_only_chain_pairs_with_mlp
+    at a row count no panel size divides."""
+    gw_p, gw_ad, p, ad = setup
+    x = np.random.default_rng(17).normal(size=(3, 200, 64)).astype(np.float32)
+    x1 = fb.fused_encoder_block(torch.from_numpy(x), p, CFG.n_heads, ad, skip_mlp=True)
+    got = fused_mlp_block(x1, p["mlp_ln"]["g"], p["mlp_ln"]["b"], p["fc1"]["w"], p["fc1"]["b"],
+                          p["fc2"]["w"], p["fc2"]["b"]).numpy()
+    want = gw_fused_block(jnp.asarray(x), gw_p, CFG.n_heads, gw_ad, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)

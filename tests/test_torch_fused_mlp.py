@@ -29,3 +29,28 @@ def test_fused_mlp_matches_gwkit(T, approx):
     jops = [jnp.asarray(a) for a in ops]
     np.testing.assert_allclose(got, np.asarray(gw_fused_mlp(*jops, interpret=True, approx=approx)), **TOL)
     np.testing.assert_allclose(got, np.asarray(gw_unfused(*jops, approx=approx)), **TOL)
+
+
+def _batched_operands(B, T, D, F, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, sc=1.0: (rng.normal(size=s) * sc).astype(np.float32)
+    return (f(B, T, D), 1 + f(D, sc=0.1), f(D, sc=0.1), f(D, F, sc=D ** -0.5), f(F, sc=0.1),
+            f(F, D, sc=F ** -0.5), f(D, sc=0.1))
+
+
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("B,T,D,F", [(3, 200, 64, 256), (1, 24, 512, 2048)],
+                         ids=["ragged-rows-3x200", "base-width-D512-F2048"])
+def test_fused_mlp_ragged_rows_and_base_width_match_gwkit(B, T, D, F, approx):
+    """Shapes kernel C's tiling treats apart on the card: 600 rows (not a
+    multiple of its 64-row panel or of a two-block cluster's 128), and
+    whisper-base's D = 512, F = 2048 (m64n256 fc2 halves). Against gwkit's
+    _fused_mlp_impl (the _mlp_kernel Pallas kernel, interpret mode) and its
+    _unfused math; f32, the file's tolerance."""
+    from gwkit.ops.fused_mlp import _fused_mlp_impl
+
+    ops = _batched_operands(B, T, D, F, seed=B * T + D)
+    got = fused_mlp_block(*(torch.from_numpy(a) for a in ops), approx=approx).numpy()
+    jops = [jnp.asarray(a) for a in ops]
+    np.testing.assert_allclose(got, np.asarray(_fused_mlp_impl(*jops, interpret=True, approx=approx)), **TOL)
+    np.testing.assert_allclose(got, np.asarray(gw_unfused(*jops, approx=approx)), **TOL)
