@@ -7,10 +7,12 @@ Phases, each printing one JSON line:
              (both turned off for the f32 phases);
   2 build    nvcc for sm_90a of every kernel source, all at once; each
              kernel's registers and spill bytes (the bf16 kernels of A, B,
-             C and D must be there, must not spill and must run on wgmma:
-             HGMMA in their SASS);
+             C, D and E must be there, must not spill and must run on
+             wgmma: HGMMA in their SASS, IGMMA, the integer form, in E's);
   3 parity   kernel A's K3 exp against expf on every bf16 input and its
-             K1 division against the IEEE quotient; each
+             K1 division against the IEEE quotient; kernel E's row
+             quantization against the IEEE division, bit for bit, on every
+             bf16 value at 117 row maxima; each
              hand-written kernel against its plain PyTorch version on
              the card, f32 and bf16, at the main path's shapes (one
              whisper-tiny layer over 256 sequences x 256 tokens), B and C
@@ -34,10 +36,13 @@ Phases, each printing one JSON line:
              bit-identical, times beside SDPA's backward; the layer's gradients through
              FusedBlock (kernels) against autograd of the plain layer;
              kernel E (int8) in each of its modes at the main shapes (with
-             zero rows and exact .5 ties), the int8 layer in gwkit's three
-             regimes against the same chain on plain versions, int8 against
-             the unquantized layer, with times beside torch._int_mm's bare
-             int8 products;
+             zero rows and exact .5 ties; fc1 handing each row's maximum
+             to fc2, checked exactly), with CUDA-event and profiler device
+             times beside torch._int_mm's bare int8 products timed both
+             ways, and on 3 x 200 rows at D = 384 and 512 (fc2 at
+             K = 2048); the int8 layer in gwkit's three regimes against the
+             same chain on plain versions, int8 against the unquantized
+             layer;
   4 search   the MLGWSC-1 search on the capstone weights at (80, 512): a
              300 s dual-detector segment (blocked whitening), batch 128,
              bf16 on the kernels; launch counters prove every encoder layer
@@ -55,8 +60,8 @@ Phases, each printing one JSON line:
              of three 8-step windows), and the device time of a step by
              kernel group;
   6 kernels  one line per the kernel table (times, bound, launches);
-             kernel E's ms, plain ms, bound and int_mm_ms are the sums of
-             its four launches a layer, kernel B's of its two;
+             kernel E's times, bound and int_mm times are the sums of its
+             four launches a layer, kernel B's of its two;
 then the card's name and power limit, and the result line last.
 Fails (non-zero exit, no result line) on any disagreement, and without CUDA.
 """
@@ -88,9 +93,12 @@ H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak
 H100_BYTES = 3.35e12      # HBM3
 CAPSTONE = "artifacts/capstone_r5"
 KERNELS = ("attention", "attention_bwd", "ln_gemm", "fused_mlp", "int8_gemm")
-# the bf16 wgmma kernels the build phase must find, each spill-free with HGMMA
+# the bf16 wgmma kernels the build phase must find, each spill-free with
+# warpgroup MMA in its SASS (HGMMA; IGMMA, the integer form, for kernel E's
+# panel and stream modes)
 HOPPER_KERNELS = ("hopper_attention_kernel", "hopper_dq_kernel", "hopper_dkdv_kernel", "hopper_ln_gemm_kernel",
-                  "hopper_fused_mlp_kernelILi384", "hopper_fused_mlp_kernelILi512")
+                  "hopper_fused_mlp_kernelILi384", "hopper_fused_mlp_kernelILi512",
+                  "hopper_int8_gemm_kernelILb0", "hopper_int8_gemm_kernelILb1")
 SOURCES = {name: f"gwkit_torch/csrc/{name}.cu" for name in KERNELS}
 REPLACES = {"attention": "gwkit/ops/attention.py:30", "attention_bwd": "gwkit/ops/attention.py:93",
             "ln_gemm": "gwkit/ops/fused_block.py:112", "fused_mlp": "gwkit/ops/fused_mlp.py:31",
@@ -249,20 +257,23 @@ def build_phase(checks):
     for name, path in paths.items():
         log = path.with_suffix(".log").read_text() if path.with_suffix(".log").is_file() else ""
         funcs, warnings = _ptxas(log)
-        for f in funcs:  # the bf16 kernels of A, B, C and D: no spills, products on wgmma (HGMMA)
+        for f in funcs:  # the bf16 kernels: no spills, products on wgmma (HGMMA; IGMMA for int8)
             if "hopper_" in f["function"]:
                 sass = _sass(path, f["function"])
                 f["hgmma_instructions"] = sass.count("HGMMA")
+                f["igmma_instructions"] = sass.count("IGMMA")
+                f["gmma_forms"] = sorted(set(re.findall(r"\b[A-Z]*GMMA[\w.]*", sass)))
                 if "hopper_attention_kernel" in f["function"]:
                     f["registers_used_after_setmaxnreg"] = _max_sass_register(sass)
-                ok = ok and f.get("spill_bytes") == 0 and f["hgmma_instructions"] > 0
+                mma = "igmma_instructions" if "int8" in f["function"] else "hgmma_instructions"
+                ok = ok and f.get("spill_bytes") == 0 and f[mma] > 0
         ptxas[name] = {"functions": funcs, "warnings": warnings}
     names = [f["function"] for fs in ptxas.values() for f in fs["functions"]]
     ok = ok and all(any(kernel in n for n in names) for kernel in HOPPER_KERNELS)
     emit("build", seconds=seconds, libraries=[p.name for p in paths.values()], ptxas=ptxas,
-         bf16_hopper_kernels_spill_free_on_hgmma=ok)
+         bf16_hopper_kernels_spill_free_on_gmma=ok)
     if not ok:
-        checks.failed.append("a bf16 Hopper kernel (A, B, C or D) missing, spilling or without HGMMA")
+        checks.failed.append("a bf16 Hopper kernel (A, B, C, D or E) missing, spilling or without warpgroup MMA")
 
 
 def _layer(D, F, H, rng, dora):
@@ -600,6 +611,34 @@ def arithmetic_checks(checks):
         checks.failed.append("A arithmetic")
 
 
+def int8_arithmetic_check(checks):
+    """Kernel E's quantization (Markstein's correction of v / sx through
+    the reciprocal, rint by a float add) against the plain version's IEEE
+    division (torch's tensor division) and round half to even, bit for bit:
+    every finite bf16 value up to the row's maximum, at 117 row maxima (0,
+    below and at the 1e-6 floor, powers of two and their neighbours, 1.5 and
+    (2 - 2^-7) times powers of two, random bf16 values from 1e-8 to 1e8)."""
+    lib, stream = _cuda.library("int8_gemm"), torch.cuda.current_stream().cuda_stream
+    lib.gw_int8_quantize.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    k = torch.arange(-30, 31, 3, device="cuda", dtype=torch.float32)
+    maxima = torch.cat([torch.tensor([0.0, 1e-7, 1e-6], device="cuda"), 2 ** k, 2 ** k * 1.5, 2 ** k * (2 - 2 ** -7),
+                        2 ** k * (1 + 2 ** -7), 10 ** (16 * torch.rand(30, device="cuda", generator=gen) - 8)])
+    maxima = maxima.to(torch.bfloat16).float()
+    x = torch.arange(65536, dtype=torch.int32, device="cuda").to(torch.int16).view(torch.bfloat16)
+    x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    rows = torch.where(x.float().abs()[None, :] <= maxima[:, None], x[None, :], torch.zeros_like(x)[None, :]).contiguous()
+    got = torch.empty(rows.shape, dtype=torch.int8, device="cuda")
+    _cuda.check(lib.gw_int8_quantize(rows.data_ptr(), maxima.data_ptr(), got.data_ptr(), rows.shape[0], rows.shape[1],
+                                     stream), "int8 quantize")
+    want, _ = IG._quantize_rows(rows.float(), row_amax=maxima)
+    n_bad = int((got != want).sum())
+    emit("parity", check="E: quantization (reciprocal + Markstein's correction) vs IEEE division, every bf16 value",
+         rows=rows.shape[0], values=rows.numel(), mismatches=n_bad, ok=n_bad == 0)
+    if n_bad:
+        checks.failed.append("E quantization arithmetic")
+
+
 # kernel D's checks: (sequences, T) x score scales; the training shapes and the strict T = 1500
 BWD_CASES = ((128, 256), (32, 1500))
 BWD_SCALES = (1e-3, 1.0, 60.0, 1e3)
@@ -733,7 +772,8 @@ def _special_rows(t):
 
 def _int_mm_ms(M, K, N):
     """torch._int_mm (cuBLASLt int8 -> int32) at the shapes: the bare int8
-    products, a yardstick only (no LN, quantization or epilogue)."""
+    products, a yardstick only (no LN, quantization or epilogue). Returns
+    (CUDA-event ms, device ms, error)."""
     a = torch.randint(-127, 128, (M, K), dtype=torch.int8, device="cuda")
     b = torch.randint(-127, 128, (K, N), dtype=torch.int8, device="cuda")
     for operand in (b, b.t().contiguous().t()):
@@ -742,8 +782,44 @@ def _int_mm_ms(M, K, N):
         except RuntimeError as exc:
             err = str(exc).splitlines()[0]
             continue
-        return median_ms(lambda: torch._int_mm(a, operand)), None
-    return None, err
+        call = lambda: torch._int_mm(a, operand)
+        return median_ms(call), device_ms(call), None
+    return None, None, err
+
+
+def _sum(a, b):
+    """a + b, or None where either was not measured."""
+    return a + b if isinstance(a, float) and isinstance(b, float) else None
+
+
+def _e_modes(layer, q, x2, att, act_in, x1):
+    """Kernel E's modes: name -> (input, projection, LN, GELU, residual,
+    extra arguments). fc1 hands each row's maximum out, fc2 takes its
+    input's (as the int8 layer chains them)."""
+    ln1, ln2 = (layer.ln1_g, layer.ln1_b), (layer.ln2_g, layer.ln2_b)
+    amax = act_in.float().abs().amax(dim=-1)
+    return {"ln1+qkv": (x2, q.qkv, ln1, None, None, {}), "o+residual": (att, q.o, None, None, x2, {}),
+            "ln2+fc1+gelu_tanh": (x1, q.fc1, ln2, "tanh", None, {"return_row_amax": True}),
+            "ln2+fc1+gelu_erf": (x1, q.fc1, ln2, "erf", None, {"return_row_amax": True}),
+            "fc2+residual": (act_in, q.fc2, None, None, x1, {"row_amax": amax})}
+
+
+def _e_check(checks, label, inp, proj, ln, act, res, kw, tol, special_rows=False):
+    """Kernel E in one mode against its plain version (which takes each
+    row's maximum itself); a row maximum handed out must be the output's,
+    exactly. ``special_rows``: also report rows 0-127 (_special_rows) apart.
+    Returns the max error."""
+    got = IG.int8_gemm(inp, proj, ln=ln, act=act, residual=res, **kw)
+    if kw.get("return_row_amax"):
+        got, amax = got
+        exact = bool(torch.equal(amax, got.float().abs().amax(dim=-1)))
+        emit("parity", check=f"{label}: row max handed out = max |y| of each row", exact=exact, ok=exact)
+        if not exact:
+            checks.failed.append(f"{label} row max")
+    want = IG._int8_gemm_reference(inp, proj, ln, act, res)
+    extra = {"special_rows_max_abs_err": float((got[:128].float() - want[:128].float()).abs().max())} \
+        if special_rows else {}
+    return checks.compare(label, got, want, tol, flip_rows=FLIP_ROWS, shape=list(got.shape), **extra)
 
 
 def int8_phase(checks):
@@ -766,30 +842,24 @@ def int8_phase(checks):
         x = normal(Bs, T, D)
         x2 = _special_rows(x.view(M, D))
         att, act_in, x1 = _special_rows(normal(M, D)), _special_rows(normal(M, F)), normal(M, D)
-        ln1, ln2 = (layer.ln1_g, layer.ln1_b), (layer.ln2_g, layer.ln2_b)
-        modes = {  # name: (input, projection, LN, GELU, residual); per layer: qkv, o, fc1 (tanh), fc2
-            "ln1+qkv": (x2, q.qkv, ln1, None, None), "o+residual": (att, q.o, None, None, x2),
-            "ln2+fc1+gelu_tanh": (x1, q.fc1, ln2, "tanh", None), "ln2+fc1+gelu_erf": (x1, q.fc1, ln2, "erf", None),
-            "fc2+residual": (act_in, q.fc2, None, None, x1)}
-        rec = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, int_mm_ms=0.0, max_abs_err=0.0)
-        for name, (inp, proj, ln, act, res) in modes.items():
-            call = lambda: IG.int8_gemm(inp, proj, ln=ln, act=act, residual=res)
+        keys = ("ms", "device_ms", "plain_ms", "bound_ms", "int_mm_ms", "int_mm_device_ms")
+        rec = dict({key: 0.0 for key in keys}, max_abs_err=0.0)
+        # per layer: qkv, o, fc1 (tanh), fc2
+        for name, (inp, proj, ln, act, res, kw) in _e_modes(layer, q, x2, att, act_in, x1).items():
+            call = lambda: IG.int8_gemm(inp, proj, ln=ln, act=act, residual=res, **kw)
             plain = lambda: IG._int8_gemm_reference(inp, proj, ln, act, res)
-            got, want = call(), plain()
-            err = checks.compare(f"E {name} {tag}", got, want, tol, flip_rows=FLIP_ROWS, shape=[M, proj.w.shape[1]],
-                                 special_rows_max_abs_err=float((got[:128].float() - want[:128].float()).abs().max()))
+            err = _e_check(checks, f"E {name} {tag}", inp, proj, ln, act, res, kw, tol, special_rows=True)
             K, N = proj.w.shape
             n_bytes = it * (M * K + M * N + (M * N if res is not None else 0) + (2 * K if ln else 0)) + K * N + 8 * N
             b_ms, by = bound_ms(n_bytes, 2 * M * N * K, dt, peak=H100_INT8_OPS)
-            t = dict(ms=median_ms(call), plain_ms=median_ms(plain, 5), bound_ms=b_ms)
-            t["int_mm_ms"], int_mm_err = _int_mm_ms(M, K, N)
+            t = dict(ms=median_ms(call), device_ms=device_ms(call), plain_ms=median_ms(plain, 5), bound_ms=b_ms)
+            t["int_mm_ms"], t["int_mm_device_ms"], int_mm_err = _int_mm_ms(M, K, N)
             emit("timing", name="int8_gemm", mode=name, dtype=tag, bound_by=by, max_abs_err=err,
                  int_mm_error=int_mm_err, shapes=f"{M} rows x K={K} -> N={N}", **t)
             if name != "ln2+fc1+gelu_erf":  # the main path's four launches a layer
-                for key in ("ms", "plain_ms", "bound_ms", "int_mm_ms"):
-                    rec[key] = None if rec[key] is None or t[key] is None else rec[key] + t[key]
+                for key in keys:
+                    rec[key] = _sum(rec[key], t[key])
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            del got, want
         # the whole int8 layer (fused regime, DoRA, tanh) against the same
         # chain on plain versions, and against the unquantized layer
         assert FB._quant_regime(T, D, F, dt) == "fused"
@@ -808,11 +878,22 @@ def int8_phase(checks):
         emit("timing", name="int8 layer", dtype=tag, shapes="main path layer (256 seq x 256 tokens)",
              int8_layer_ms=median_ms(lambda: FB.fused_layer_apply(x, layer, approx=True)),
              unquantized_chain_ms=median_ms(lambda: FB.fused_layer_apply(x, full_layer, approx=True)),
+             int8_layer_device_ms=device_ms(lambda: FB.fused_layer_apply(x, layer, approx=True)),
+             unquantized_chain_device_ms=device_ms(lambda: FB.fused_layer_apply(x, full_layer, approx=True)),
              chains={"int8": "E, A, E, E, E", "unquantized": "B, A, B, C"})
         if dt == torch.bfloat16:
             record = dict(name="int8_gemm", dtype=tag, bound_by="bytes", library_ms=None, **rec)
         del x, x2, att, act_in, x1, got, want, full, layer, full_layer
         torch.cuda.empty_cache()
+
+        # RAGGED_ROWS rows at whisper-tiny and whisper-base widths (fc2 at K = 2048)
+        for Dr in (384, 512):
+            pr, adr = _layer(Dr, 4 * Dr, Dr // 64, rng, True)
+            lr = FB.fold_layer(pr, adr, Dr // 64, dt, quant=True)
+            R = RAGGED_ROWS
+            for name, (inp, proj, ln, act, res, kw) in _e_modes(lr, lr.int8, normal(R, Dr), normal(R, Dr),
+                                                                 normal(R, 4 * Dr), normal(R, Dr)).items():
+                _e_check(checks, f"E ragged M={R} D={Dr} {name} {tag}", inp, proj, ln, act, res, kw, tol)
 
     # the split regime (base at T = 1500, bf16) and the reference regime
     # (tiny at T = 1500, f32), each against the same chain on plain versions
@@ -1280,6 +1361,7 @@ def main():
     smi = device_phase()
     build_phase(checks)
     arithmetic_checks(checks)
+    int8_arithmetic_check(checks)
     records = parity_phase(checks)
     records["attention_bwd"] = attention_bwd_phase(checks)
     layer_grad_phase(checks)
@@ -1297,7 +1379,8 @@ def main():
         # each kernel's launches on its own path: the search (forward), the
         # int8 search for kernel E, training for the attention backward
         main_path = {"attention_bwd": train, "int8_gemm": search_int8}.get(name, search)
-        extra = {key: r[key] for key in ("int_mm_ms", "gemm_ms", "gemm_device_ms", "device_ms", "library_device_ms",
+        extra = {key: r[key] for key in ("int_mm_ms", "int_mm_device_ms", "gemm_ms", "gemm_device_ms", "device_ms",
+                                         "library_device_ms",
                                          "standalone_ms", "standalone_device_ms", "standalone_plain_ms") if key in r}
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
                         "launches": main_path[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -3,9 +3,8 @@
 // shared-memory barriers (mbarrier) that tie them together.
 //
 // Kernels A (attention.cu), D (attention_bwd.cu), B (ln_gemm.cu) and C
-// (fused_mlp.cu) use it in bf16. Kernel E (int8_gemm.cu, next) is meant to
-// reuse its TMA ring, clusters and epilogue store, with an s8 wgmma form
-// added beside the bf16 ones.
+// (fused_mlp.cu) use it in bf16; kernel E (int8_gemm.cu) takes its TMA
+// ring, clusters, LayerNorm pass and TMA store with the s8 wgmma forms.
 //
 // What is here:
 //  * shared-memory matrix descriptors for tiles written by a TMA load with
@@ -14,11 +13,14 @@
 //    contiguous: Q and K for S = Q K^T) and MN-major (the output dimension
 //    contiguous: V as B of O = P V, read with the transpose flag), the
 //    latter also over several 64-column atoms (B wider than 64); sw128, the
-//    byte offset of an element in such an atom;
+//    byte offset of an element in such an atom, and sw128_byte for 1-byte
+//    elements (an int8 atom row holds 128 values of depth);
 //  * wgmma.fence / commit_group / wait_group and a register fence that
 //    keeps the compiler from moving accumulators across an async product;
 //  * bf16 wgmma with f32 accumulation: m64n64k16 with A from shared memory
 //    (SS) or from registers (RS), and m64nNk16 SS for N = 128, 192, 256;
+//  * s8 wgmma with s32 accumulation: m64nNk32 SS for N = 64, 128 (both
+//    operands K-major: 8-bit types have no transpose);
 //  * mbarrier init, arrive (also on another block of the cluster), arrive
 //    with an expected byte count, and the parity wait;
 //  * TMA: the 4-D and 2-D tile loads, the 2-D load multicast to every block
@@ -26,17 +28,18 @@
 //    bulk copy (contiguous bytes), the proxy fence and named barriers; on
 //    the host the tensor-map encoding through cudaGetDriverEntryPoint, so
 //    no library links libcuda: the (64, H, T, B) map of attention's
-//    row-strided q, k, v and dO, and 2-D maps of row-major matrices;
+//    row-strided q, k, v and dO, and 2-D maps of row-major bf16 or 1-byte
+//    matrices;
 //  * cluster rank, id, count and barrier;
-//  * LayerNorm in place over a swizzled K-major panel (kernels B and C);
+//  * LayerNorm in place over a swizzled K-major panel (kernels B, C, E);
 //  * accumulator-fragment helpers shared by the attention kernels: quad
 //    max, sum and transpose, column masking, and the correctly rounded
 //    division through a reciprocal (div_rn).
 //
 // Fragment layouts (PTX ISA, "wgmma" register fragments), for thread
 // `lane` of warp w of the warpgroup, g = lane / 4, x = lane % 4:
-//  * accumulator of m64nN: d[4j + 2i + e] holds row 16w + g + 8i, column
-//    8j + 2x + e (j < N / 8, i, e in {0, 1});
+//  * accumulator of m64nN (f32, or s32 of the s8 forms): d[4j + 2i + e]
+//    holds row 16w + g + 8i, column 8j + 2x + e (j < N / 8, i, e in {0, 1});
 //  * A of m64nNk16 from registers, four 32-bit registers of two bf16 each
 //    (low half first): a[0] row 16w + g, columns 2x, 2x+1; a[1] row
 //    16w + g + 8, the same columns; a[2], a[3] the same rows at columns
@@ -92,6 +95,11 @@ __device__ __forceinline__ uint64_t desc_mnmajor_atoms(const void* tile, uint32_
 __device__ __forceinline__ uint32_t sw128(int r, int c) {
   return (uint32_t)r * 128u + ((((uint32_t)c >> 3) ^ ((uint32_t)r & 7u)) << 4) + (((uint32_t)c & 7u) << 1);
 }
+// The same for byte b (< 128) of row r, for 1-byte elements: an int8 atom
+// row holds 128 values of depth, and a k32 step is 32 bytes (as bf16's k16).
+__device__ __forceinline__ uint32_t sw128_byte(int r, int b) {
+  return (uint32_t)r * 128u + ((((uint32_t)b >> 4) ^ ((uint32_t)r & 7u)) << 4) + ((uint32_t)b & 15u);
+}
 
 // --- wgmma ordering ------------------------------------------------------------
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -106,6 +114,10 @@ template <int N> __device__ __forceinline__ void reg_fence(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 template <int N> __device__ __forceinline__ void reg_fence(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void reg_fence(int (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
@@ -216,6 +228,45 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
   else
     WgmmaSS<N>::template run<TRANS_B>(d, a, b, accumulate);
 }
+
+// d (64 x N, s32: N / 2 registers a thread, the accumulator layout at the
+// top) = (accumulate ? d : 0) + A (64 x 32) B (32 x N), A and B int8 in
+// shared memory by descriptor, both K-major (B as N rows of depth): the
+// PTX ISA has no transpose for 8-bit types. A k32 step is 32 bytes, +2 in
+// a descriptor. N = 64, 128 (kernel E).
+#define GW_IOPS4(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3])
+#define GW_IOPS16(i) GW_IOPS4(i), GW_IOPS4(i + 4), GW_IOPS4(i + 8), GW_IOPS4(i + 12)
+#define GW_IOPS32(i) GW_IOPS16(i), GW_IOPS16(i + 16)
+template <int N> struct WgmmaS8;
+template <> struct WgmmaS8<64> {
+  static __device__ __forceinline__ void run(int (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+        ", %32, %33, p;\n}\n"
+        : GW_IOPS32(0)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+template <> struct WgmmaS8<128> {
+  static __device__ __forceinline__ void run(int (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+        ", %64, %65, p;\n}\n"
+        : GW_IOPS32(0), GW_IOPS32(32)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+#undef GW_IOPS4
+#undef GW_IOPS16
+#undef GW_IOPS32
 
 // two floats as one register of two bf16 (round to nearest even), lo first
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -423,6 +474,12 @@ struct RingConsumer {
     pending = at.idx;
     at.advance();
   }
+  // stage `at` was read by plain loads (no products): released at once;
+  // only with no product pending (after drain), and after the warp's reads
+  __device__ __forceinline__ void consumed() {
+    release(at.idx);
+    at.advance();
+  }
   // every product issued is complete and its stage released
   __device__ __forceinline__ void drain() {
     wgmma_wait<0>();
@@ -628,22 +685,33 @@ inline int tma_map_bf16_4d(CUtensorMap* map, const void* base, const cuuint64_t 
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// A 2-D bf16 tensor map with 128-byte swizzle over a row-major (rows, cols)
-// matrix with row stride `ld` elements: boxes of box_rows x box_cols
-// (box_cols <= 64, one swizzle row). Base 16-byte aligned, ld a multiple
-// of 8. Returns a cudaError_t.
-inline int tma_map_bf16_2d(CUtensorMap* map, const void* base, long long rows, long long cols, long long ld,
-                           int box_rows, int box_cols) {
+// A 2-D tensor map with 128-byte swizzle over a row-major (rows, cols)
+// matrix of `elem`-byte elements with row stride `ld` elements: boxes of
+// box_rows x box_cols (box_cols x elem <= 128 bytes, one swizzle row). Base
+// 16-byte aligned, ld x elem a multiple of 16. Returns a cudaError_t.
+inline int tma_map_2d(CUtensorMap* map, CUtensorMapDataType type, size_t elem, const void* base, long long rows,
+                      long long cols, long long ld, int box_rows, int box_cols) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(__nv_bfloat16)};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * elem};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-                  elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+// bf16: box_cols <= 64
+inline int tma_map_bf16_2d(CUtensorMap* map, const void* base, long long rows, long long cols, long long ld,
+                           int box_rows, int box_cols) {
+  return tma_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(__nv_bfloat16), base, rows, cols, ld, box_rows,
+                    box_cols);
+}
+// 1-byte elements (int8 moves as uint8): box_cols <= 128
+inline int tma_map_u8_2d(CUtensorMap* map, const void* base, long long rows, long long cols, long long ld,
+                         int box_rows, int box_cols) {
+  return tma_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rows, cols, ld, box_rows, box_cols);
 }
 
 // The map (64, H, T, B) of a row-strided (B, T, H, 64) bf16 view: row t of

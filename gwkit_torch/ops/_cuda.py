@@ -43,7 +43,7 @@ _SIGNATURES = {
     "attention_bwd": ("gw_attention_bwd", [_P] * 11 + [_I] * 8 + [_P]),
     "ln_gemm": ("gw_ln_gemm", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "fused_mlp": ("gw_fused_mlp", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "int8_gemm": ("gw_int8_gemm", [_P] * 8 + [_I] * 5 + [_P]),
+    "int8_gemm": ("gw_int8_gemm", [_P] * 11 + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()

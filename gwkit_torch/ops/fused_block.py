@@ -235,8 +235,10 @@ def _quant_layer_apply(x: torch.Tensor, layer: FusedLayer, approx: bool, skip_ml
     if regime == "split":
         return fused_mlp_block(x1.view(B, T, D), layer.ln2_g, layer.ln2_b, layer.w1, layer.b1, layer.w2,
                                layer.b2, approx=approx)
-    h = int8_gemm(x1, q.fc1, ln=(layer.ln2_g, layer.ln2_b), act="tanh" if approx else "erf")
-    return int8_gemm(h, q.fc2, residual=x1).view(B, T, D)
+    # fc1 hands each row's maximum over to fc2, which quantizes by it
+    h, h_amax = int8_gemm(x1, q.fc1, ln=(layer.ln2_g, layer.ln2_b), act="tanh" if approx else "erf",
+                          return_row_amax=True)
+    return int8_gemm(h, q.fc2, residual=x1, row_amax=h_amax).view(B, T, D)
 
 
 def fused_layer_apply(x: torch.Tensor, layer: FusedLayer, approx: bool = False,

@@ -41,16 +41,20 @@ TOL = dict(rtol=2e-5, atol=2e-6)
 CAP = os.path.join(os.path.dirname(__file__), "..", "artifacts", "capstone_r5")
 
 
-@pytest.fixture(scope="module")
-def setup():
-    params = init_encoder_params(jax.random.PRNGKey(0), CFG)
-    adapters = init_adapters(jax.random.PRNGKey(1), CFG,
+def _params(cfg):
+    params = init_encoder_params(jax.random.PRNGKey(0), cfg)
+    adapters = init_adapters(jax.random.PRNGKey(1), cfg,
                              AdapterConfig(r=4, alpha=8, use_dora=True, targets="qkvo"), params)
     # non-zero B so the low-rank path contributes (as tests/test_fused_block.py)
     adapters = jax.tree.map(
         lambda a: a + 0.01 * np.arange(a.size, dtype=np.float32).reshape(a.shape) % 0.07, adapters)
     port = from_gwkit_numpy(jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, adapters))
     return params, adapters, port
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _params(CFG)
 
 
 def _layer0(setup, with_adapters):
@@ -79,12 +83,18 @@ class _QuantInputs:
         monkeypatch.setattr(fb, "int8_gemm", recording)
 
     def near_tie_rows(self, within=3e-5):
-        rows = set()
-        for h in self.inputs:
-            sx = torch.clamp_min(h.abs().amax(dim=-1, keepdim=True), 1e-6) / 127.0
-            v = (h / sx).abs()
-            rows |= set(np.flatnonzero((((v - v.floor()) - 0.5).abs() < within).any(-1).numpy()).tolist())
-        return rows
+        return _near_tie_rows(self.inputs, within)
+
+
+def _near_tie_rows(inputs, within=3e-5):
+    """Rows where any of the quantization inputs holds a value within
+    ``within`` quanta of a rounding tie."""
+    rows = set()
+    for h in inputs:
+        sx = torch.clamp_min(h.abs().amax(dim=-1, keepdim=True), 1e-6) / 127.0
+        v = (h / sx).abs()
+        rows |= set(np.flatnonzero((((v - v.floor()) - 0.5).abs() < within).any(-1).numpy()).tolist())
+    return rows
 
 
 def _assert_close_up_to_flips(got, want, near_ties, **tol):
@@ -324,3 +334,118 @@ def test_capstone_int8_scores_match_gwkit(caplog):
     assert got.shape == (3, 2) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=3e-3 * float(np.abs(want).max()))
     assert float(np.abs(got - want).max()) <= 2 * sensitivity
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_proj_keeps_k_major_weight_copy(setup, dtype):
+    """Every projection of both int8 sets fold_layer makes carries ``wt``,
+    the K-major (N, K) int8 copy the bf16 kernel reads: w.T bit for bit,
+    contiguous."""
+    _, _, p, ad = _layer0(setup, True)
+    layer = fb.fold_layer(p, ad, CFG.n_heads, dtype, quant=True)
+    for qset in (layer.int8, layer.int8_ref):
+        for name in ("qkv", "o", "fc1", "fc2"):
+            proj = getattr(qset, name)
+            assert proj.wt.dtype == torch.int8 and proj.wt.is_contiguous()
+            assert tuple(proj.wt.shape) == tuple(proj.w.shape[::-1])
+            assert torch.equal(proj.wt, proj.w.t())
+
+
+def test_handed_over_row_max_quantizes_as_gwkit():
+    """_quantize_rows with each row's max |h| handed over (as fc1's launch
+    hands it to fc2's) is gwkit's _quantize_rows bit for bit: exact .5 ties,
+    an all-zero row, rows spanning 1e-8 .. 1e4 (_hard_rows), and 3 x 200
+    rows."""
+    rng = np.random.default_rng(12)
+    wide = (rng.normal(size=(600, 192)) * 10.0 ** rng.uniform(-3, 3, size=(600, 1))).astype(np.float32)
+    wide[7] = 0.0
+    for h in (_hard_rows(rng), wide):
+        ht = torch.from_numpy(h)
+        got = _quantize_rows(ht, ht.abs().amax(dim=-1))
+        for g, w in zip(got, gfb._quantize_rows(jnp.asarray(h))):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("act", ["tanh", "erf"])
+def test_fc1_fc2_chain_with_row_max_handover_matches_gwkit(act):
+    """Kernel E's plain fc1 (LN + GELU) returns each row's max |y|; fc2
+    quantizes by it. On 3 x 200 rows: the handed-over maximum is fc1's
+    output's, quantizing by it is gwkit's _quantize_rows bit for bit, and
+    the chain is gwkit's _ln_f32 -> _qdot -> GELU -> _qdot + residual
+    (fused_block.py:256-266), rows at a rounding tie allowed as in the
+    module docstring."""
+    rng = np.random.default_rng(13)
+    M, D, F = 600, 64, 256
+    x = rng.normal(size=(M, D)).astype(np.float32)
+    g, b = (1 + 0.1 * rng.normal(size=D)).astype(np.float32), (0.1 * rng.normal(size=D)).astype(np.float32)
+    w1, b1 = (rng.normal(size=(D, F)) / np.sqrt(D)).astype(np.float32), (0.1 * rng.normal(size=F)).astype(np.float32)
+    w2, b2 = (rng.normal(size=(F, D)) / np.sqrt(F)).astype(np.float32), (0.1 * rng.normal(size=D)).astype(np.float32)
+    t = torch.from_numpy
+    ln = (t(g), t(b))
+    _cuda.reset_counts()
+    h, amax = int8_gemm(t(x), QuantProj.of(t(w1), t(b1)), ln=ln, act=act, return_row_amax=True)
+    assert amax.dtype == torch.float32 and torch.equal(amax, h.abs().amax(dim=-1))
+    for got, want in zip(_quantize_rows(h, amax), gfb._quantize_rows(jnp.asarray(h.numpy()))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    got = int8_gemm(h, QuantProj.of(t(w2), t(b2)), residual=t(x), row_amax=amax)
+    assert _cuda.PLAIN_CALLS == {"int8_gemm": 2} and _cuda.LAUNCHES["int8_gemm"] == 0
+
+    jx = jnp.asarray(x)
+    (wq1, sw1), (wq2, sw2) = gfb._quantize_cols(jnp.asarray(w1)), gfb._quantize_cols(jnp.asarray(w2))
+    h_gw = jax.nn.gelu(gfb._qdot(gfb._ln_f32(jx, jnp.asarray(g), jnp.asarray(b)), wq1, sw1, jnp.asarray(b1)),
+                       approximate=act == "tanh")
+    want = jx + gfb._qdot(h_gw, wq2, sw2, jnp.asarray(b2))
+    _assert_close_up_to_flips(got.numpy(), want, _near_tie_rows([_ln(t(x), *ln), h]), **TOL)
+    with pytest.raises(ValueError, match="row_amax"):
+        int8_gemm(h, QuantProj.of(t(w2), t(b2)), ln=(t(g[:1].repeat(F)), t(b[:1].repeat(F))), row_amax=amax)
+
+
+@pytest.mark.parametrize("geometry", [(3, 200, 64, 2, 128), (1, 24, 512, 8, 2048)])
+def test_quant_layer_ragged_rows_and_base_width_match_gwkit_fused_kernel(setup, monkeypatch, geometry):
+    """The fused regime on shapes kernel E's bf16 tiling treats apart on the
+    card: 3 x 200 rows (not a multiple of its 128- or 64-row panels or of a
+    two-block cluster's), and whisper-base's D = 512, F = 2048 (fc2 at
+    K = 2048, the stream mode's largest panel) at a short T. Against gwkit's
+    quantized whole-layer kernel in interpret mode, with DoRA; f32, the
+    module's tolerance and flip rule."""
+    B, T, D, H, F = geometry
+    if D == CFG.d_model:
+        gw_p, gw_ad, p, ad = _layer0(setup, True)
+    else:
+        params, adapters, port = _params(WhisperConfig(d_model=D, n_heads=H, n_layers=1, d_ff=F, max_positions=64))
+        gw_p, gw_ad = (jax.tree.map(lambda a: a[0], tree) for tree in (params["layers"], adapters))
+        p, ad = port["encoder"]["layers"][0], port["adapters"][0]
+    x = np.random.default_rng(B * T + D).normal(size=(B, T, D)).astype(np.float32)
+    assert fb._quant_regime(T, D, F, torch.float32) == "fused"
+    _cuda.reset_counts()
+    rec = _QuantInputs(monkeypatch)
+    got = fb.fused_encoder_block(torch.from_numpy(x), p, H, ad, quant=True).numpy()
+    assert _cuda.PLAIN_CALLS == {"int8_gemm": 4, "attention": 1}
+    want = gfb.fused_encoder_block(jnp.asarray(x), gw_p, H, gw_ad, interpret=True, quant=True)
+    _assert_close_up_to_flips(got, want, rec.near_tie_rows(), **TOL)
+    full = fb.fused_encoder_block(torch.from_numpy(x), p, H, ad).numpy()
+    assert np.linalg.norm(got - full) / np.linalg.norm(full) < 0.03
+
+
+def test_kernel_shape_gates():
+    """What int8_gemm hands to kernel E, decided on the CPU: in bf16 K and N
+    are multiples of 128, K at most 512, or 2048 for fc2 with the row
+    maximum handed over; in f32 (the WMMA kernel) K a multiple of 64, N of
+    16. Anything else raises before a launch, with no fallback."""
+    from gwkit_torch.ops.int8_gemm import _check_shapes
+
+    proj = lambda K, N: QuantProj.of(torch.randn(K, N), torch.zeros(N))
+    bf = lambda M, K: torch.zeros(M, K, dtype=torch.bfloat16)
+    fc2 = proj(2048, 512)
+    with pytest.raises(ValueError, match="2048 with each row's maximum"):
+        _check_shapes(bf(600, 2048), fc2, None, None, None)
+    _check_shapes(bf(600, 2048), fc2, None, None, torch.zeros(600))
+    _check_shapes(bf(600, 512), proj(512, 1536), None, None, None)
+    for K, N in ((384, 200), (320, 384), (2176, 384)):
+        with pytest.raises(ValueError, match="multiples of 128"):
+            _check_shapes(bf(8, K), proj(K, N), None, None, torch.zeros(8))
+    _check_shapes(torch.zeros(8, 320), proj(320, 208), None, None, None)
+    with pytest.raises(ValueError, match="float32"):
+        _check_shapes(torch.zeros(8, 320), proj(320, 200), None, None, None)
+    with pytest.raises(ValueError, match="row_amax"):
+        _check_shapes(bf(8, 384), proj(384, 384), None, None, torch.zeros(9))
