@@ -48,6 +48,19 @@ Phases, each printing one JSON line:
              bf16 on the kernels; launch counters prove every encoder layer
              ran on them; the first 4 batches are then rescored in f32 on
              the plain path and compared;
+  4c stream  phase 4's task and threshold on 300 s of noise independent
+             of phase 4's, with 20 chirps added (SNR 8-30): the exact
+             search, then the streaming Q-scan search (each block
+             Q-transformed once, every window cropped from it), each a
+             warm and a timed pass; the streaming pass's launch
+             counters; its first 4 batches against the f32 plain path;
+             stream-vs-exact correlation and trigger Jaccard (printed: the
+             two differ near window edges by design); the device time of
+             the streaming pass by group; the MLGWSC-1 statistics
+             (get_stats) of both searches against phase 4's noise-only
+             clusters, with the sensitive distance at FAR <= 1e3 and 1e2
+             a month (gated: keys, finite, FAR non-increasing, found
+             injections and sensitive fractions equal to a plain count);
   4b int8    the same search with int8 projections (kernel E), launch
              counters, throughput, its scores against the f32 plain int8
              path and against phase 4's bf16 scores; then a ScoringServer on
@@ -1085,11 +1098,167 @@ def search_phase(checks, smi):
     if not ok_bf16:
         checks.failed.append("bf16 search scores")
     return dict(launches=launches, threshold=threshold, bf16_scores=bf16_scores, span=span,
-                trigger_times=_trigger_times(res.triggers))
+                trigger_times=_trigger_times(res.triggers), task=task,
+                clusters=np.vstack([times, stats, np.full(len(times), 0.2)]))
 
 
 def _trigger_times(triggers):
     return {t for trig in triggers.values() for t, _ in trig}
+
+
+GET_STATS_KEYS = ("fg-events", "found-indices", "missed-indices", "true-positive-event-indices",
+                  "false-positive-event-indices", "sorting-indices", "true-positive-diffs", "false-positive-diffs",
+                  "true-positives", "false-positives", "fg-far", "far", "sensitive-volume", "sensitive-distance",
+                  "sensitive-volume-error", "sensitive-fraction")
+
+
+def _challenge_stats(fg, bg, inj, duration):
+    """get_stats of foreground clusters ``fg`` (3, K: times, stats, time
+    variances) against background clusters ``bg``, summarized: counts, the
+    sensitive distance at FAR <= 1e3 and 1e2 a month, ``well_formed`` (the
+    keys, finite values, non-increasing FARs) and ``counts_agree`` (found
+    injections and the sensitive fraction at every background stat equal
+    to a plain count, at least one injection found)."""
+    from gwkit_torch.evaluation.mlgwsc import get_stats
+    from gwkit_torch.search.cluster import SECONDS_PER_MONTH
+
+    times, stats, tvars = fg
+    st = get_stats(fg, bg, inj, duration=duration)
+    far_month = st["far"] * SECONDS_PER_MONTH
+
+    def distance_at(limit):
+        sel = far_month <= limit
+        return float(st["sensitive-distance"][sel].max()) if sel.any() else None
+
+    well_formed = (tuple(st) == GET_STATS_KEYS
+                   and all(np.isfinite(np.asarray(v, np.float64)).all() for v in st.values())
+                   and bool(np.all(np.diff(st["far"]) <= 0)) and bool(np.all(np.diff(st["fg-far"]) <= 0)))
+    # the plain count: an injection is found when a cluster lies within the
+    # cluster's time variance of its tc (injections further apart than two
+    # variances, so no cluster is near two), with its loudest such cluster's
+    # stat; found at a background stat when louder than it
+    near = np.abs(times[None, :] - inj["tc"][:, None]) <= tvars[None, :]  # (injections, clusters)
+    best = np.where(near, stats[None, :], -np.inf).max(axis=1, initial=-np.inf)
+    plain_found = int(np.isfinite(best).sum())
+    plain_fraction = (best[None, :] > np.sort(bg[1])[:, None]).sum(axis=1) / len(best)
+    found = int(len(np.unique(st["found-indices"][st["true-positive-event-indices"]])))
+    return dict(
+        foreground_clusters=int(len(times)), true_positives=int(len(st["true-positive-event-indices"])),
+        false_positives=int(len(st["false-positive-event-indices"])),
+        found_injections=found, plain_found_injections=plain_found,
+        sensitive_distance_far_le_1e3_per_month=distance_at(1e3),
+        sensitive_distance_far_le_1e2_per_month=distance_at(1e2),
+        # a background of T seconds resolves no FAR below one event in T
+        sensitive_distance_at_lowest_nonzero_far=distance_at(far_month[far_month > 0].min())
+        if (far_month > 0).any() else None,
+        loudest_injection_found_stat=float(st["true-positives"][1].max()) if st["true-positives"].size else None,
+        best_found_fraction=float(st["sensitive-fraction"].max()) if len(st["sensitive-fraction"]) else None,
+        well_formed=well_formed,
+        counts_agree=found == plain_found > 0 and np.array_equal(st["sensitive-fraction"], plain_fraction))
+
+
+def stream_search_phase(checks, smi, bf16):
+    """Phase 4c: phase 4's bf16 task and threshold on a 300 s segment of
+    independent noise (another seed than phase 4's) with 20 chirps added.
+    The exact search, then the streaming search (a warm pass, then a timed
+    pass each); the streaming pass's launches; its first 4 batches against
+    the f32 plain path; the challenge statistics of both searches against
+    phase 4's noise-only clusters, their found injections and sensitive
+    fractions held against a plain count. Returns the streaming pass's
+    launches."""
+    from gwkit_torch.search.cluster import SECONDS_PER_MONTH, get_clusters
+    from gwkit_torch.search.engine import score_segments, stream_search_kwargs
+    from gwkit_torch.search.slicer import Segment, SlicerConfig
+    from gwkit_torch.train.tasks import build_mlgwsc
+
+    task, threshold = bf16["task"], bf16["threshold"]
+    enc = task.cfg.encoder
+    fs, seconds, n_inj = 2048, 300.0, 20
+    rng = np.random.default_rng(20)
+    waves, tc_local = _chirps(n_inj, rng, with_tc=True)
+    snr = rng.uniform(8.0, 30.0, n_inj)
+    starts = 5.0 + 14.0 * np.arange(n_inj) + rng.uniform(0.0, 4.0, n_inj)
+    # foreground noise independent of phase 4's background (seed 0)
+    strain = (np.random.default_rng(1).normal(size=(2, int(seconds * fs))) * 1e-21).astype(np.float32)
+    for w, a, t0 in zip(waves, snr, starts):
+        i = int(round(t0 * fs))
+        strain[:, i:i + fs] += (a * 1e-21 * w).astype(np.float32)  # white noise of unit variance: SNR a
+    # injection table: distance falls as the SNR rises (a source at 1500 Mpc at SNR 8)
+    inj = {"tc": starts + tc_local, "distance": 1500.0 * 8.0 / snr, "mass1": rng.uniform(10.0, 50.0, n_inj),
+           "mass2": rng.uniform(10.0, 50.0, n_inj)}
+    seg = Segment(key="smoke_injections", strain=strain, start_time=0.0, delta_t=1.0 / fs)
+    cfg = SlicerConfig(batch_size=128)
+    dev = torch.device("cuda")
+    saved, n_spec = [], [0]
+
+    def score_spec(qspec):
+        n_spec[0] += 1
+        if len(saved) < 4:  # the warm pass's first 4 batches, for the f32 check
+            saved.append(qspec.clone())
+        return task.score_spec(qspec)
+
+    stream_kw = {**stream_search_kwargs(task), "stream_score_fn": score_spec}
+    runs = {}
+    for name, kw in (("exact", {}), ("stream", stream_kw)):
+        warm = score_segments(task.score, [seg], cfg, trigger_threshold=threshold, device=dev, **kw)
+        n_spec[0] = 0
+        _cuda.reset_counts()
+        res = score_segments(task.score, [seg], cfg, trigger_threshold=threshold, device=dev, **kw)
+        runs[name] = (warm, res, dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS), n_spec[0])
+    exact, stream = runs["exact"][1], runs["stream"][1]
+    _, _, launches, plain, nb = runs["stream"]
+    nl = enc.n_layers
+    expect = {"attention": nl * nb, "attention_bwd": 0, "ln_gemm": 2 * nl * nb, "fused_mlp": nl * nb, "int8_gemm": 0}
+    ok = launches == expect and not plain and nb > 0
+    t_exact, t_stream = _trigger_times(exact.triggers), _trigger_times(stream.triggers)
+    union = t_exact | t_stream
+    emit("search_stream", card=smi, seconds=seconds, injections=n_inj, windows=stream.n_windows, batches=nb,
+         threshold=threshold, launches=launches, expected_launches=expect, plain_calls=plain, ok=ok,
+         strain_seconds_per_second={"exact": exact.throughput_x_realtime, "stream": stream.throughput_x_realtime},
+         warm_strain_seconds_per_second={k: runs[k][0].throughput_x_realtime for k in runs},
+         wall_s={"exact": exact.wall_seconds, "stream": stream.wall_seconds},
+         triggers={"exact": len(t_exact), "stream": len(t_stream)},
+         score_correlation_stream_vs_exact=float(np.corrcoef(stream.all_vals, exact.all_vals)[0, 1]),
+         max_abs_score_diff_stream_vs_exact=float(np.abs(stream.all_vals - exact.all_vals).max()),
+         trigger_jaccard_stream_vs_exact=len(t_exact & t_stream) / len(union) if union else 1.0)
+    if not ok:
+        checks.failed.append("stream launch counters")
+    assert stream.n_windows == exact.n_windows == 3000 and len(stream.all_vals) == 3000
+    assert np.isfinite(stream.all_vals).all() and np.isfinite(exact.all_vals).all()
+    profiled("profile_stream", lambda: score_segments(task.score, [seg], cfg, trigger_threshold=threshold, device=dev,
+                                                      **stream_kw))
+
+    # the streaming pass's first 4 batches on the f32 plain path (the reference)
+    task32 = build_mlgwsc(dataclasses.replace(enc, compute_dtype=torch.float32, fused_block=False), task.qcfg,
+                          task.params, device=dev)
+    with torch.no_grad():
+        ref = torch.cat([task32.score_spec(q) for q in saved]).float().cpu()
+    del task32, saved
+    got = torch.from_numpy(stream.all_vals[: 4 * 128])
+    span = float(ref.max() - ref.min())
+    d = (got - ref).abs()
+    tol = {k: v * span for k, v in SEARCH_BF16_TOL.items()}
+    ok_bf16 = float(d.max()) <= tol["max"] and float(d.mean()) <= tol["mean"]
+    emit("parity", check="stream search scores: bf16 kernels vs f32 plain (first 4 batches)",
+         max_abs_err=float(d.max()), mean_abs_err=float(d.mean()), f32_score_span=span,
+         correlation=float(np.corrcoef(got.numpy(), ref.numpy())[0, 1]), tol_of_span=SEARCH_BF16_TOL, tol=tol,
+         ok=ok_bf16)
+    if not ok_bf16:
+        checks.failed.append("bf16 stream search scores")
+
+    # the challenge statistics: each search's clusters as foreground, phase 4's noise-only clusters as background
+    evaluation = {}
+    for name, res in (("exact", exact), ("stream", stream)):
+        evaluation[name] = ev = _challenge_stats(np.vstack(get_clusters(res.triggers)), bf16["clusters"], inj, seconds)
+        if not ev["well_formed"]:
+            checks.failed.append(f"get_stats ({name} search)")
+        if not ev["counts_agree"]:
+            checks.failed.append(f"get_stats found injections vs plain count ({name} search)")
+    emit("evaluate", background_clusters=int(bf16["clusters"].shape[1]), injections=n_inj, duration_s=seconds,
+         loudest_background_stat=float(bf16["clusters"][1].max()),
+         far_per_month_of_one_background_event=SECONDS_PER_MONTH / seconds, **evaluation,
+         ok=all(v["well_formed"] and v["counts_agree"] for v in evaluation.values()))
+    return launches
 
 
 def int8_search_phase(checks, smi, bf16):
@@ -1217,19 +1386,22 @@ def server_phase(checks, task):
         checks.failed.append("serve")
 
 
-def _chirps(n, rng, fs=2048):
+def _chirps(n, rng, fs=2048, with_tc=False):
     """n two-detector chirp-like waveforms of 1 s, each detector scaled to
-    unit norm (so the dataset's SNR factor sets the amplitude)."""
+    unit norm (so the dataset's SNR factor sets the amplitude); with
+    ``with_tc`` also each one's envelope peak in seconds."""
     t = np.arange(fs) / fs
     out = np.zeros((n, 2, fs), np.float32)
+    tcs = np.zeros(n)
     for i in range(n):
         f0, f1, tc = rng.uniform(30, 60), rng.uniform(150, 400), rng.uniform(0.5, 0.9)
+        tcs[i] = tc
         phase = 2 * np.pi * (f0 * t + 0.5 * (f1 - f0) * t ** 2 / tc)
         env = np.exp(-((t - tc) / 0.12) ** 2)
         for d in range(2):
             h = np.sin(phase + rng.uniform(0, 2 * np.pi)) * env
             out[i, d] = h / np.linalg.norm(h)
-    return out
+    return (out, tcs) if with_tc else out
 
 
 def _grad_groups(task, batch):
@@ -1368,6 +1540,8 @@ def main():
     records["int8_gemm"] = int8_phase(checks)
     bf16_search = search_phase(checks, smi)
     search = bf16_search["launches"]
+    search_stream = stream_search_phase(checks, smi, bf16_search)
+    del bf16_search["task"]
     search_int8, int8_task = int8_search_phase(checks, smi, bf16_search)
     server_phase(checks, int8_task)
     del int8_task
@@ -1386,7 +1560,8 @@ def main():
                         "launches": main_path[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "grids_per_launch": GRIDS_PER_LAUNCH[name],
-                        "launches_by_path": {"search": search.get(name, 0), "search_int8": search_int8.get(name, 0),
+                        "launches_by_path": {"search": search.get(name, 0), "search_stream": search_stream.get(name, 0),
+                                             "search_int8": search_int8.get(name, 0),
                                              "train": train.get(name, 0)}, **extra})
     if checks.failed:
         print("chip_smoke: FAILED " + ", ".join(checks.failed), file=sys.stderr)

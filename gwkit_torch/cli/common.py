@@ -18,6 +18,7 @@ SECTIONS: Dict[str, str] = {
     "adapter_weights": "model",
     "batch_size": "search", "step_size": "search", "trigger_threshold": "search",
     "white": "search", "cluster_threshold": "search", "softmax": "search", "stream": "search",
+    "qscan_stream": "search",
 }
 _RUN_ONLY = {"config", "help"}
 

@@ -10,7 +10,8 @@ It runs on the CUDA card (bf16, tanh GELU, every encoder layer on the
 hand-written kernels) unless ``--cpu`` is given (f32, erf GELU, plain
 PyTorch), the settings gwkit picks on a TPU and on the CPU. ``--int8`` puts
 the encoder's projections on int8 (kernel E) on the card and, as in gwkit,
-does nothing on the CPU.
+does nothing on the CPU. ``--qscan-stream`` takes the experimental streaming
+Q-scan for long segments.
 """
 from __future__ import annotations
 
@@ -66,6 +67,12 @@ def parse_args(argv=None):
     p.add_argument("--int8", action="store_true",
                    help="int8 projections in every encoder layer (the card only; a no-op "
                         "with --cpu).")
+    p.add_argument("--qscan-stream", action="store_true",
+                   help="Experimental, not for production: streaming Q-scan front end for "
+                        "segments longer than a whitening block. Each block of whitened strain "
+                        "is Q-transformed once and windows crop their spectrograms from it. Not "
+                        "the per-window transform: the two differ near window edges by design. "
+                        "Slower than the per-window scan on an H100 (PERF.md section 7).")
     return parse_with_config(p, argv)
 
 
@@ -178,11 +185,13 @@ def main(argv=None):
     )
     if args.debug_nans:
         task.score = _finite_scores(task.score)
+        task.score_spec = _finite_scores(task.score_spec)
     triggers, all_vals, result = get_triggers(
         task, args.inputfile,
         step_size=args.step_size, trigger_threshold=args.trigger_threshold,
         white=args.white, whitened_file=args.debug_whitened_file,
         batch_size=args.batch_size, verbose=args.verbose, stream=bool(args.stream),
+        qscan_stream=args.qscan_stream,
     )
     print(f"Total slices above threshold {args.trigger_threshold:.3f}: "
           f"{sum(len(v) for v in triggers.values())}")

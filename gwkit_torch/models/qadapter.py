@@ -92,7 +92,9 @@ def qadapter_apply(cfg: QAdapterConfig, params: dict, strain: torch.Tensor) -> t
 
 
 def qadapter_apply_spec(cfg: QAdapterConfig, params: dict, qspec: torch.Tensor) -> torch.Tensor:
-    """(B, D, F, T) Q spectrograms -> (B, D, F*, T*) features."""
+    """(B, D, F, T) Q spectrograms -> (B, D, F*, T*) features: the
+    post-Q-scan half of :func:`qadapter_apply`, which the streaming search
+    feeds with cropped spectrograms."""
     B, D = qspec.shape[:2]
     x = qspec.reshape(B * D, 1, *qspec.shape[2:])
     with no_tf32_convs():

@@ -1,5 +1,6 @@
 """Batched constant-Q transform (Q-scan) in PyTorch (counterpart of
-``gwkit/ops/qtransform.py``, per-window path with ``time_decimation=1``).
+``gwkit/ops/qtransform.py``): the per-window scan with
+``time_decimation=1`` and the streaming one.
 
 The static plan (``make_qplan`` and its helpers) is gwkit's numpy code,
 copied: rows bucketed by their native power-of-two tile length, gather
@@ -8,6 +9,16 @@ then runs one ``torch.fft.ifft`` per bucket (gwkit's dense iDFT matmuls for
 short buckets were a TPU matrix-unit choice), median-normalizes each row,
 interpolates to the fixed spectrogram shape and keeps per sample the plane
 with the largest peak normalized energy.
+
+The streaming scan (``make_stream_plan``, ``stream_energies``,
+``stream_crops``, ``qscan_stream``) transforms a whole chunk of whitened
+strain once, one band iFFT per Q row, and serves each 1 s window by
+cropping its span from every row's energy series. It is not the per-window
+transform: the chunk transform sees data past the window's edges where the
+per-window one wraps around, so the two differ near a window's edges by
+design. gwkit computes the band iDFTs as f32 matmuls for the TPU's matrix
+unit (``_ifft_energy_mxu``); here they are ``torch.fft.ifft`` (cuFFT on the
+card), about 1e-5 of the bucket maximum apart.
 """
 from __future__ import annotations
 
@@ -243,6 +254,18 @@ def qscan(strain: torch.Tensor, plan: QPlan | None = None, *, duration: float = 
     return _plane_select(tinterp, rowmax, plan, _plan_tensors(plan, strain.device).freq_interp)
 
 
+def _normalizer(energy: torch.Tensor, norm: str, stride: int) -> torch.Tensor:
+    """A row's normalizer over its last axis (median of every ``stride``-th
+    sample, mean, or 1), at least 1e-30; the axis is kept."""
+    if norm == "median":
+        denom = median(energy[..., ::stride] if stride > 1 else energy, dim=-1, keepdim=True)
+    elif norm == "mean":
+        denom = energy.mean(dim=-1, keepdim=True)
+    else:
+        denom = torch.ones_like(energy[..., :1])
+    return torch.clamp(denom, min=1e-30)
+
+
 def _row_energies(strain: torch.Tensor, plan: QPlan, norm: str, median_stride: int):
     """Every row's normalized energy on the output time grid (B, rows,
     t_bins) and its peak (B, rows), rows in plane-major order."""
@@ -254,14 +277,7 @@ def _row_energies(strain: torch.Tensor, plan: QPlan, norm: str, median_stride: i
         spec = fseries[:, gidx] * gw  # (B, n_L, L)
         y = torch.fft.ifft(spec, dim=-1)
         energy = y.real ** 2 + y.imag ** 2
-        if norm == "median":
-            s = min(median_stride, max(1, L // 64))
-            denom = median(energy[..., ::s] if s > 1 else energy, dim=-1, keepdim=True)
-        elif norm == "mean":
-            denom = energy.mean(dim=-1, keepdim=True)
-        else:
-            denom = torch.ones_like(energy[..., :1])
-        denom = torch.clamp(denom, min=1e-30)
+        denom = _normalizer(energy, norm, min(median_stride, max(1, L // 64)))
         tlow = energy[..., lo]
         thigh = energy[..., hi]
         tinterp_parts.append((tlow + w * (thigh - tlow)) / denom)
@@ -286,3 +302,238 @@ def _plane_select(tinterp: torch.Tensor, rowmax: torch.Tensor, plan: QPlan,
              for m, part in zip(freq_interp, tinterp.split(list(plan.n_rows), dim=1))]
     stacked = torch.stack(specs, dim=1)  # (B, nplanes, f, t)
     return stacked[torch.arange(stacked.shape[0], device=stacked.device), best]
+
+
+# ---------------------------------------------------------------------------
+# The streaming Q-scan (gwkit's ``--qscan-stream``): one band iFFT per Q row
+# over a whole chunk of whitened strain, every window cropped from it.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamBucket:
+    """One window-plan bucket's rows, transformed at chunk scale.
+
+    Holds each row's band as compact vectors (center bin, half-width,
+    qprime/f, normalization); :func:`stream_energies` rebuilds the band
+    windows from them. The dense (n_rows, L_b) tables are properties, for
+    tests and small geometries."""
+    window_length: int          # L_w: the row's native per-window ntiles
+    length: int                 # L_b = L_w * chunk_seconds / window_duration
+    chunk_seconds: int
+    n_bins: int                 # chunk rfft bins (index validity bound)
+    rows: np.ndarray            # plane-major row indices (same as QBucket)
+    centers: np.ndarray         # (n_rows,) int32 rfft bin of each row center
+    halves: np.ndarray          # (n_rows,) int32 band half-width in bins
+    qpof: np.ndarray            # (n_rows,) f64 qprime / f
+    normv: np.ndarray           # (n_rows,) f64 row normalization constant
+
+    def _signed_offsets(self) -> np.ndarray:
+        j = np.arange(self.length)
+        return ((j + self.length // 2) % self.length) - self.length // 2
+
+    @property
+    def gather_idx(self) -> np.ndarray:
+        k = self._signed_offsets()
+        idx = self.centers[:, None] + k[None, :]
+        valid = ((np.abs(k)[None, :] <= self.halves[:, None])
+                 & (idx >= 0) & (idx < self.n_bins))
+        return np.where(valid, idx, 0).astype(np.int32)
+
+    @property
+    def gather_weight(self) -> np.ndarray:
+        k = self._signed_offsets()
+        idx = self.centers[:, None] + k[None, :]
+        valid = ((np.abs(k)[None, :] <= self.halves[:, None])
+                 & (idx >= 0) & (idx < self.n_bins))
+        xf = np.clip((k[None, :] / self.chunk_seconds) * self.qpof[:, None], -1.0, 1.0)
+        w = (1.0 - xf ** 2) ** 2 * self.normv[:, None]
+        return np.where(valid, w, 0.0).astype(np.float32)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    base: QPlan                 # the per-window plan (rows/planes/interp)
+    chunk_seconds: int          # chunk duration (s; power of two)
+    chunk_samples: int          # chunk_seconds * sample_rate
+    buckets: Tuple[StreamBucket, ...]
+
+
+@functools.lru_cache(maxsize=8)
+def make_stream_plan(
+    duration: float = 1.0,
+    sample_rate: float = 2048.0,
+    q_range: Tuple[float, float] = (4.0, 128.0),
+    spectrogram_shape: Tuple[int, int] = (128, 128),
+    mismatch: float = 0.2,
+    chunk_seconds: int = 16,
+) -> StreamPlan:
+    """Chunk-scale band geometry for every row of the per-window Q plan.
+
+    Each row keeps its window-plan center frequency and Q; its bisquare band
+    is re-evaluated on the chunk's rfft grid (df = 1/chunk_seconds) over the
+    same fractional support, and its energy series length scales to
+    L_b = ntiles * chunk_seconds / duration: the row's per-window sampling
+    rate sustained across the chunk, so a crop of L_w samples lands on the
+    per-window grid's instants. The per-row normalization constant is the
+    window plan's (for norm median or mean any per-row constant cancels).
+    """
+    base = make_qplan(duration, sample_rate, q_range, spectrogram_shape, mismatch)
+    t_c = int(chunk_seconds)
+    if t_c % duration != 0 or t_c <= duration:
+        raise ValueError("chunk_seconds must be a multiple of (and exceed) duration")
+    c_samples = int(round(t_c * sample_rate))
+    n_bins = c_samples // 2 + 1
+    sbuckets = []
+    for b in base.buckets:
+        l_w = b.length
+        l_b = int(l_w * t_c / duration)
+        f = base.row_f[b.rows]
+        q = base.row_q[b.rows]
+        qprime = q / np.sqrt(11.0)
+        halves = (f / qprime * t_c).astype(np.int64)
+        assert (2 * halves + 1 <= l_b).all(), "band wider than the row's chunk grid"
+        normv = l_w / (duration * sample_rate) * np.sqrt(315.0 * qprime / (128.0 * f))
+        sbuckets.append(StreamBucket(
+            window_length=l_w, length=l_b, chunk_seconds=t_c, n_bins=n_bins,
+            rows=b.rows,
+            centers=np.round(f * t_c).astype(np.int32),
+            halves=halves.astype(np.int32),
+            qpof=(qprime / f).astype(np.float64),
+            normv=normv.astype(np.float64),
+        ))
+    return StreamPlan(base=base, chunk_seconds=t_c, chunk_samples=c_samples,
+                      buckets=tuple(sbuckets))
+
+
+class _StreamTensors:
+    """A stream plan's tables on one device (built once per (plan,
+    device)): per bucket the rows' band windows (the same f32 arithmetic as
+    gwkit's, which builds them inside its program) and the output-grid taps
+    of a window crop."""
+
+    def __init__(self, plan: StreamPlan, device: torch.device):
+        t_bins = plan.base.shape[1]
+        self.windows, self.taps = [], []
+        for sb in plan.buckets:
+            k = np.arange(sb.length) - sb.length // 2  # natural-order signed offsets
+            xf = np.clip((k / sb.chunk_seconds).astype(np.float32)[None, :] * sb.qpof.astype(np.float32)[:, None],
+                         np.float32(-1.0), np.float32(1.0))
+            w = np.where(np.abs(k)[None, :] <= sb.halves[:, None],
+                         (np.float32(1.0) - xf ** 2) ** 2 * sb.normv.astype(np.float32)[:, None], np.float32(0.0))
+            self.windows.append(torch.from_numpy(w.astype(np.float32)).to(device))
+            # a crop's taps: xtap are the output bins' window-relative
+            # positions; floor(frac + xtap) is flo or flo + 1
+            l_w = sb.window_length
+            xtap = np.clip((np.arange(t_bins) + 0.5) * (l_w / t_bins) - 0.5, 0.0, l_w - 1.0)
+            flo = np.floor(xtap).astype(np.int64)
+            step = np.diff(flo)
+            strided = len(flo) > 1 and (step == step[0]).all() and step[0] >= 1
+            self.taps.append((
+                (int(flo[0]), int(step[0])) if strided else torch.from_numpy(flo).to(device),
+                torch.from_numpy((xtap - flo).astype(np.float32)).to(device)))
+
+
+# (id(plan), device) -> (plan, tables); holding the plan keeps its id unique
+_STREAM_TABLES: Dict[Tuple[int, str], Tuple[StreamPlan, _StreamTensors]] = {}
+
+
+def _stream_tensors(plan: StreamPlan, device: torch.device) -> _StreamTensors:
+    key = (id(plan), str(device))
+    hit = _STREAM_TABLES.get(key)
+    if hit is None:
+        hit = _STREAM_TABLES[key] = (plan, _StreamTensors(plan, device))
+    return hit[1]
+
+
+def stream_energies(chunk: torch.Tensor, plan: StreamPlan) -> Tuple[torch.Tensor, ...]:
+    """Per-bucket (D, n_rows, L_b) f32 Q-row energy series of one strain
+    chunk (D, chunk_samples): computed once a chunk and shared by every
+    window cropped from it.
+
+    One rfft of the chunk; per bucket, every row's band in natural order
+    (rfft bins [c - L/2, c + L/2), zero outside the spectrum) as a slice of
+    the padded spectrum, times the row's bisquare window, then one batched
+    iFFT and |.|^2. Natural order is the iFFT's signed-offset order shifted
+    by L/2, which multiplies the series by (-1)^m, and |.|^2 erases that.
+    The complex spectra are freed bucket by bucket."""
+    tabs = _stream_tensors(plan, chunk.device)
+    fseries = torch.fft.rfft(chunk.float(), dim=-1)  # (D, n_bins)
+    n_bins = fseries.shape[-1]
+    out = []
+    for sb, w in zip(plan.buckets, tabs.windows):
+        half_l = sb.length // 2
+        padded = torch.nn.functional.pad(fseries, (half_l, max(0, int(sb.centers.max()) + half_l - n_bins)))
+        # row i's band is the slice padded[:, c_i : c_i + L]
+        spec = torch.stack([padded[:, c: c + sb.length] for c in sb.centers.tolist()], dim=1) * w  # (D, n_rows, L)
+        y = torch.fft.ifft(spec, dim=-1)
+        del spec
+        out.append(y.real ** 2 + y.imag ** 2)
+        del y
+    return tuple(out)
+
+
+def _stream_rows(energies: Tuple[torch.Tensor, ...], starts_sec: torch.Tensor, plan: StreamPlan,
+                 norm: str, median_stride: int):
+    """Every row's normalized energy on the output time grid (B, D, rows,
+    t_bins) and its peak (B, D, rows), rows in plane-major order, for B
+    windows starting ``starts_sec`` (f32, seconds from the chunk's start)."""
+    base = plan.base
+    t_bins = base.shape[1]
+    tabs = _stream_tensors(plan, energies[0].device)
+    tparts, mparts = [], []
+    for sb, energy, (tap0, ufrac) in zip(plan.buckets, energies, tabs.taps):
+        l_w, l_b = sb.window_length, sb.length
+        pos0 = starts_sec * (l_w / base.duration)  # (B,) fractional row-grid window starts
+        # one contiguous crop of l_w + 3 native samples a window; the taps
+        # below are slices of it. At the chunk's end i0 is clamped and frac
+        # may exceed 1.
+        i0 = torch.clamp(torch.floor(pos0).to(torch.int64), 0, l_b - (l_w + 3))
+        frac = pos0 - i0.float()
+        idx = i0[:, None] + torch.arange(l_w + 3, device=i0.device)[None, :]
+        crop = energy[:, :, idx].permute(2, 0, 1, 3)  # (B, D, n_rows, l_w+3)
+        # the normalizer and peak from the native samples at round(pos0) = i0 + (frac >= 0.5)
+        s = min(median_stride, max(1, l_w // 64))
+        ro = (frac >= 0.5)[:, None, None, None]
+        mcrop = torch.where(ro, crop[..., 1:l_w + 1:s], crop[..., 0:l_w:s])
+        denom = _normalizer(mcrop, norm, 1)[..., 0]  # (B, D, n_rows)
+        mparts.append(mcrop.amax(dim=-1) / denom)
+        # 2-tap interpolation onto the output grid: three taps of the crop
+        # (strided slices where the tap step is uniform) blended by
+        # u = frac + (xtap - flo)
+        if isinstance(tap0, tuple):
+            f0, st = tap0
+            taps = [crop[..., f0 + d: f0 + d + st * t_bins: st] for d in (0, 1, 2)]
+        else:
+            taps = [crop.index_select(-1, tap0 + d) for d in (0, 1, 2)]
+        ub = (frac[:, None] + ufrac[None])[:, None, None, :]
+        tint = torch.where(ub < 1.0, (1.0 - ub) * taps[0] + ub * taps[1],
+                           (2.0 - ub) * taps[1] + (ub - 1.0) * taps[2])
+        tparts.append(tint / denom[..., None])
+    row_inv = _plan_tensors(base, energies[0].device).row_inv
+    return torch.cat(tparts, dim=2)[:, :, row_inv], torch.cat(mparts, dim=2)[:, :, row_inv]
+
+
+def stream_crops(energies: Tuple[torch.Tensor, ...], starts_sec: torch.Tensor, plan: StreamPlan, *,
+                 norm: str = "median", median_stride: int = 1) -> torch.Tensor:
+    """Q spectrograms (B, D, f_bins, t_bins) of B windows cropped from a
+    chunk's row energies; ``starts_sec`` (B,) are the windows' starts in
+    seconds from the chunk's start (f32, may be fractional). The
+    normalizer (median or mean over time) and the best-plane peak come from
+    a strided crop of each row's native samples, as :func:`qscan`'s
+    ``median_stride``; the plane is chosen per (window, detector)."""
+    tinterp, rowmax = _stream_rows(energies, starts_sec, plan, norm, median_stride)
+    b_win, d_det = tinterp.shape[:2]
+    base = plan.base
+    out = _plane_select(tinterp.reshape(b_win * d_det, -1, base.shape[1]), rowmax.reshape(b_win * d_det, -1),
+                        base, _plan_tensors(base, tinterp.device).freq_interp)
+    return out.reshape(b_win, d_det, *base.shape)
+
+
+def qscan_stream(chunk: torch.Tensor, starts_sec: torch.Tensor, plan: StreamPlan, *,
+                 norm: str = "median", median_stride: int = 1) -> torch.Tensor:
+    """One-shot streaming Q-scan: :func:`stream_energies` then
+    :func:`stream_crops`. The search calls the two halves apart, so that a
+    whitening block's energies serve every batch of its windows."""
+    return stream_crops(stream_energies(chunk, plan), starts_sec, plan, norm=norm,
+                        median_stride=median_stride)

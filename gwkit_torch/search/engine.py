@@ -46,6 +46,10 @@ def score_segments(
     detectors: Optional[List[str]] = None,
     verbose: bool = False,
     device: DeviceLike = None,
+    stream_score_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    stream_plan_args: Optional[tuple] = None,
+    stream_norm: str = "median",
+    stream_median_stride: int = 1,
 ) -> SearchResult:
     """Run ``score_fn(windows (B, D, L)) -> scores (B,)`` over every segment.
 
@@ -53,7 +57,13 @@ def score_segments(
     threshold) and the concatenated raw score stream (``all_vals``). The
     wall time ends after the last scores reached the host. ``device`` is
     where windows are whitened and gathered, the device ``score_fn`` runs
-    on; ``None`` is the CUDA card (raises without one)."""
+    on; ``None`` is the CUDA card (raises without one).
+
+    ``stream_score_fn`` ((B, D, F, T) Q spectrograms -> (B,)) with
+    ``stream_plan_args`` selects the streaming Q-scan for blocked (long)
+    segments (``DeviceSlicer.fused_scores_stream``); short segments keep
+    the per-window path, as in gwkit. The two differ near window edges by
+    design."""
     device = resolve_device(device)
     triggers: Dict[str, List[List[float]]] = {}
     all_vals: List[np.ndarray] = []
@@ -64,7 +74,11 @@ def score_segments(
         slicer = DeviceSlicer(seg, slicer_cfg, white=white, device=device)
         if whitened_out is not None:
             _write_whitened(whitened_out, seg, slicer, detectors)
-        pending = [(score_fn(windows), times, valid) for windows, times, valid in slicer.batches()]
+        if stream_score_fn is not None and slicer._blocked:
+            pending = list(slicer.fused_scores_stream(stream_score_fn, stream_plan_args, norm=stream_norm,
+                                                      median_stride=stream_median_stride))
+        else:
+            pending = [(score_fn(windows), times, valid) for windows, times, valid in slicer.batches()]
         seg_triggers: List[List[float]] = []
         for dev_scores, times, valid in pending:
             scores = dev_scores.float().cpu().numpy().reshape(-1)[: len(valid)]
@@ -98,6 +112,18 @@ def _write_whitened(path: str, seg: Segment, slicer: DeviceSlicer, detectors) ->
             wf.require_group(det).create_dataset(seg.key, data=slicer.dss[i].cpu().numpy())
 
 
+def stream_search_kwargs(task) -> dict:
+    """:func:`score_segments`' streaming arguments from a task's Q-adapter
+    geometry (scores from ``task.score_spec``)."""
+    qcfg = getattr(task, "qcfg", None)
+    if getattr(task, "score_spec", None) is None or qcfg is None:
+        raise ValueError("qscan_stream requires a task with a Q-scan front end (score_spec + qcfg)")
+    return dict(stream_score_fn=task.score_spec,
+                stream_plan_args=(qcfg.kernel_length, float(qcfg.sample_rate), qcfg.q_range,
+                                  qcfg.spectrogram_shape, 0.2),
+                stream_norm=qcfg.qscan_norm, stream_median_stride=qcfg.median_stride)
+
+
 def get_triggers(
     task,
     inputfile: str,
@@ -109,16 +135,21 @@ def get_triggers(
     batch_size: int = 128,
     verbose: bool = False,
     stream: bool = False,
+    qscan_stream: bool = False,
 ) -> Tuple[Dict[str, List[List[float]]], np.ndarray, SearchResult]:
     """The reference get_triggers flow on a search task (usually mlgwsc,
     USR): read the file's segments (all up front, or with ``stream`` one
-    ahead on a reader thread), score them on ``task.device``."""
+    ahead on a reader thread), score them on ``task.device``.
+    ``qscan_stream`` takes the streaming Q-scan for long segments, from
+    the task's Q-adapter geometry."""
+    stream_kwargs = stream_search_kwargs(task) if qscan_stream else {}
+    device = resolve_device(task.device)
     segments = stream_segments(inputfile) if stream else read_segments(inputfile)
     cfg = SlicerConfig(step_size=step_size, low_frequency_cutoff=low_frequency_cutoff,
                        batch_size=batch_size)
     result = score_segments(task.score, segments, cfg, trigger_threshold=trigger_threshold,
                             white=white, whitened_out=whitened_file, verbose=verbose,
-                            device=task.device)
+                            device=device, **stream_kwargs)
     return result.triggers, result.all_vals, result
 
 

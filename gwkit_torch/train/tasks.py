@@ -8,10 +8,12 @@ A :class:`Task` holds gwkit's split: ``frozen`` (the encoder) and
 ``trainable`` (adapters, head, Q-adapter; with ``full_finetune`` the
 encoder, head and Q-adapter and no adapters). ``apply``, ``loss_fn`` and
 ``embed`` take the two trees on every call and are differentiable (the
-trainer's surface); ``forward`` and ``score`` are the search's, without
-gradients, on an encoder prepared (folded for the kernel chain) from the
-current encoder and adapters, and prepared anew once any of their tensors
-is replaced or updated in place (as a trainer's step does).
+trainer's surface); ``forward`` and ``score`` are the search's, and
+``forward_from_qspec`` and ``score_spec`` the streaming search's (from Q
+spectrograms), without gradients, on one encoder prepared (folded for the
+kernel chain) from the current encoder and adapters, and prepared anew
+once any of their tensors is replaced or updated in place (as a trainer's
+step does).
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ from gwkit_torch.io import tree_leaves, tree_to
 from gwkit_torch.models.adapters import AdapterConfig, export_peft_dir, init_adapters
 from gwkit_torch.models.classifier import ClassifierConfig, encode_embedding, init_head
 from gwkit_torch.models.heads import mlp_head_apply
-from gwkit_torch.models.qadapter import QAdapterConfig, init_qadapter, qadapter_apply
+from gwkit_torch.models.qadapter import (QAdapterConfig, init_qadapter, qadapter_apply,
+                                         qadapter_apply_spec)
 from gwkit_torch.models.whisper import WhisperConfig, WhisperEncoder, init_encoder_params
 from gwkit_torch.train.checkpoints import save_pytree
 from gwkit_torch.train.losses import reg_bce
@@ -51,8 +54,12 @@ class Task:
         return {**self.frozen, **self.trainable}
 
     def _embed(self, qadapter: dict, encoder, adapters, strain: torch.Tensor) -> torch.Tensor:
-        B, D = strain.shape[0], self.qcfg.n_detectors
-        feats = qadapter_apply(self.qcfg, qadapter, strain)  # (B, D, 80, T*)
+        return self._embed_feats(encoder, adapters, qadapter_apply(self.qcfg, qadapter, strain))
+
+    def _embed_feats(self, encoder, adapters, feats: torch.Tensor) -> torch.Tensor:
+        """Q-adapter features (B, D, 80, T*) -> (B, D * d_model), detectors
+        folded into the encoder's batch."""
+        B, D = feats.shape[:2]
         emb = encode_embedding(self.cfg, encoder, feats.reshape(B * D, *feats.shape[2:]), adapters)
         return emb.reshape(B, D * emb.shape[-1])
 
@@ -84,22 +91,43 @@ class Task:
         if "qadapter" in trainable:
             save_pytree(os.path.join(outdir, "best_adapter.npz"), trainable["qadapter"])
 
-    @torch.no_grad()
-    def forward(self, strain: torch.Tensor) -> torch.Tensor:
-        """The search forward: strain (B, D, T) -> logits (USR) or
-        probabilities (B, num_classes), on the prepared encoder."""
+    def _prepared_encoder(self) -> WhisperEncoder:
+        """The search's encoder, prepared from the current encoder and
+        adapters; prepared anew once any of their tensors was replaced or
+        updated in place."""
         p = self.params
         # each leaf's identity and in-place version counter
         key = tuple((id(t), getattr(t, "_version", None)) for t in tree_leaves([p["encoder"], p.get("adapters")]))
         if self._encoder is None or key != self._encoder_key:
             self._encoder = WhisperEncoder(self.cfg.encoder, p["encoder"], p.get("adapters"))
             self._encoder_key = key
-        return mlp_head_apply(p["head"], self._embed(p["qadapter"], self._encoder, None, strain),
+        return self._encoder
+
+    @torch.no_grad()
+    def forward(self, strain: torch.Tensor) -> torch.Tensor:
+        """The search forward: strain (B, D, T) -> logits (USR) or
+        probabilities (B, num_classes), on the prepared encoder."""
+        p = self.params
+        return mlp_head_apply(p["head"], self._embed(p["qadapter"], self._prepared_encoder(), None, strain),
+                              softmax=self.cfg.softmax)
+
+    @torch.no_grad()
+    def forward_from_qspec(self, qspec: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` from Q spectrograms (B, D, F, T), as the
+        streaming search computes them: Q-adapter CNN, pool and FiLM, then
+        the same prepared encoder and head."""
+        p = self.params
+        feats = qadapter_apply_spec(self.qcfg, p["qadapter"], qspec)
+        return mlp_head_apply(p["head"], self._embed_feats(self._prepared_encoder(), None, feats),
                               softmax=self.cfg.softmax)
 
     def score(self, windows: torch.Tensor) -> torch.Tensor:
         """The search statistic: output column 0 for each window (B,)."""
         return self.forward(windows)[:, 0]
+
+    def score_spec(self, qspec: torch.Tensor) -> torch.Tensor:
+        """The search statistic from Q spectrograms (B, D, F, T): (B,)."""
+        return self.forward_from_qspec(qspec)[:, 0]
 
 
 def build_mlgwsc(encoder: WhisperConfig, qcfg: QAdapterConfig, params: Optional[Dict[str, Any]] = None,

@@ -54,7 +54,7 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from gwkit_torch.device import resolve_device
     from gwkit_torch.models.qadapter import QAdapterConfig
     from gwkit_torch.models.whisper import WhisperConfig
-    from gwkit_torch.search.engine import score_segments
+    from gwkit_torch.search.engine import get_triggers, score_segments
     from gwkit_torch.search.slicer import DeviceSlicer, Segment
     from gwkit_torch.train.tasks import build_mlgwsc
 
@@ -74,6 +74,14 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     seg = Segment("seg", np.zeros((2, 4096), np.float32), 0.0, 1 / 2048)
     with pytest.raises(RuntimeError, match="CUDA"):
         score_segments(lambda w: w[:, 0, 0], [seg])
+
+    class StreamTask:  # a search task on the default device
+        device = None
+        qcfg = QAdapterConfig()
+        score = score_spec = staticmethod(lambda x: x[:, 0, 0])
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_triggers(StreamTask(), "in.hdf", qscan_stream=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         DeviceSlicer(seg)
     with pytest.raises(RuntimeError, match="CUDA"):
