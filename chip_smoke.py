@@ -72,9 +72,26 @@ Phases, each printing one JSON line:
              losses, the exports loaded back and scored, steps/s (median
              of three 8-step windows), and the device time of a step by
              kernel group;
-  6 kernels  one line per the kernel table (times, bound, launches);
-             kernel E's times, bound and int_mm times are the sums of its
-             four launches a layer, kernel B's of its two;
+  6 mel      the Signal_vs_Noise and glitch workloads at Whisper-tiny's
+             full context (3000 mel frames, T = 1500), bf16 on the kernel
+             chain, random weights from a torch seed, 1 s two-detector
+             strain with chirps at SNR 5-15 in half the samples: (6a)
+             Signal_vs_Noise forward at batch 64, the card's log-mel
+             against the CPU path (2e-3), exactly 4 A, 8 B and 4 C a
+             batch, samples/s and a profiled pass, every token of the
+             encoder output and the logits against the f32 plain path;
+             gwkit's use_flash_attention and fused_mlp switches on the
+             unfused layer (A and C, then D), forward and gradients;
+             (6b) cli/train.py's recipe at batch 16: the step's gradients
+             (f32 loss and bf16 summed logits) against the plain layer,
+             8 A, 4 D, 8 B and 4 C a step, samples/s and a 3-step profile;
+             (6c) glitch (one detector, 11 classes) under 6a's gates, a
+             step with dropout and a full fine-tuning step with the
+             encoder's gradients through the kernels;
+  kernels    one line per the kernel table (times, bound, launches, by
+             path: search, search_stream, search_int8, train, mel,
+             mel_train); kernel E's times, bound and int_mm times are the
+             sums of its four launches a layer, kernel B's of its two;
 then the card's name and power limit, and the result line last.
 Fails (non-zero exit, no result line) on any disagreement, and without CUDA.
 """
@@ -324,6 +341,20 @@ def _plain_chain(x, layer, approx, skip_mlp=False):
                        layer.b2.to(x.dtype), approx)
 
 
+def _layer_bounds(Bs, T, D, F, H, dt):
+    """The bounds (ms, by) of one encoder layer's kernel launches over Bs
+    sequences of T tokens: B's two launches (LN1 + QKV, o-projection +
+    residual), A, C; each input read once, each output written once."""
+    it = torch.tensor([], dtype=dt).element_size()
+    M = Bs * T
+    qkv_b, qkv_f = it * (M * D + D * 3 * D + 2 * D + M * 3 * D) + 4 * 3 * D, 2 * M * 3 * D * D
+    o_b, o_f = it * (M * D + D * D + 2 * M * D) + 4 * D, 2 * M * D * D
+    att_b, att_f = it * 4 * M * D, 4 * Bs * H * T * T * (D // H)
+    mlp_b, mlp_f = it * (2 * M * D + 2 * D + 2 * D * F) + 4 * (F + D), 4 * M * D * F
+    return {"ln_gemm": [bound_ms(qkv_b, qkv_f, dt), bound_ms(o_b, o_f, dt)],
+            "attention": [bound_ms(att_b, att_f, dt)], "fused_mlp": [bound_ms(mlp_b, mlp_f, dt)]}
+
+
 def parity_phase(checks):
     """Kernels vs plain versions; returns the main-path kernel records (bf16)."""
     rng = np.random.default_rng(0)
@@ -358,12 +389,8 @@ def parity_phase(checks):
         e_mlp = checks.compare(f"C mlp {tag}", out, FM._unfused(
             x1.view(Bs, T, D), layer.ln2_g, layer.ln2_b, layer.w1, layer.b1.to(dt), layer.w2, layer.b2.to(dt), True), tol)
 
-        it = torch.tensor([], dtype=dt).element_size()
         M = Bs * T
-        qkv_b, qkv_f = it * (M * D + D * 3 * D + 2 * D + M * 3 * D) + 4 * 3 * D, 2 * M * 3 * D * D
-        o_b, o_f = it * (M * D + D * D + 2 * M * D) + 4 * D, 2 * M * D * D
-        att_b, att_f = it * 4 * M * D, 4 * Bs * H * T * T * (D // H)
-        mlp_b, mlp_f = it * (2 * M * D + 2 * D + 2 * D * F) + 4 * (F + D), 4 * M * D * F
+        bounds = _layer_bounds(Bs, T, D, F, H, dt)
         qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
         timing = {
@@ -372,17 +399,17 @@ def parity_phase(checks):
                 + median_ms(lambda: FB.ln_gemm(att2, layer.wo, layer.bo, residual=x2)),
                 plain_ms=median_ms(lambda: FB._ln_gemm_reference(x2, layer.wqkv, layer.bqkv, ln1))
                 + median_ms(lambda: FB._ln_gemm_reference(att2, layer.wo, layer.bo, None, x2)),
-                bound=[bound_ms(qkv_b, qkv_f, dt), bound_ms(o_b, o_f, dt)], library_ms=None,
+                bound=bounds["ln_gemm"], library_ms=None,
                 max_abs_err=max(e_qkv, e_o)),
             "attention": dict(
                 ms=median_ms(lambda: A.attention_from_qkv(qkv.view(Bs, T, 3 * D), H)),
                 plain_ms=median_ms(lambda: A.reference_attention(q, k, v)),
-                bound=[bound_ms(att_b, att_f, dt)], library_ms=median_ms(sdpa), max_abs_err=e_att),
+                bound=bounds["attention"], library_ms=median_ms(sdpa), max_abs_err=e_att),
             "fused_mlp": dict(
                 ms=median_ms(lambda: FM.fused_mlp_block(*mlp_args, approx=True)),
                 plain_ms=median_ms(lambda: FM._unfused(x1.view(Bs, T, D), layer.ln2_g, layer.ln2_b, layer.w1,
                                                        layer.b1.to(dt), layer.w2, layer.b2.to(dt), True)),
-                bound=[bound_ms(mlp_b, mlp_f, dt)], library_ms=None, max_abs_err=e_mlp),
+                bound=bounds["fused_mlp"], library_ms=None, max_abs_err=e_mlp),
         }
         timing["attention"].update(
             device_ms=device_ms(lambda: A.attention_from_qkv(qkv.view(Bs, T, 3 * D), H)),
@@ -979,11 +1006,11 @@ def _kernel_group(name):
         if key in low:
             return key
     if "fft" in low:
-        return "fft (whitening, Q-scan)"
+        return "fft (whitening, Q-scan, resampling, STFT)"
     if any(k in low for k in ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad")):
         return "convolution (stem, Q-adapter)"
     if any(k in low for k in ("gemm", "cutlass", "nvjet", "xmma")):
-        return "library gemm (projections, head, pooling)"
+        return "library gemm (projections, head, pooling, mel bank)"
     if "sort" in low or "radix" in low:
         return "sort (medians)"
     return "other (elementwise, gathers, reductions)"
@@ -1016,6 +1043,7 @@ def profiled(phase, fn, **extra):
          device_busy_share=device_ms / wall_ms if device_ms else "not measured",
          device_ms_by_group={k: v for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
          top_kernels=[{"ms": t, "name": n, "count": c} for t, n, c in top[:14]])
+    return groups
 
 
 def search_phase(checks, smi):
@@ -1404,19 +1432,48 @@ def _chirps(n, rng, fs=2048, with_tc=False):
     return (out, tcs) if with_tc else out
 
 
-def _grad_groups(task, batch):
-    """Gradients of the task's loss on ``batch``, flattened per group."""
+def _grad_groups(task, batch, summed_logits=False):
+    """Gradients of the task's loss on ``batch`` (no dropout), or with
+    ``summed_logits`` of the sum of its logits, flattened per group of the
+    trainable tree (adapters, encoder, head, qadapter)."""
     from gwkit_torch.io import tree_leaves
 
     tr = _with_grad(task.trainable)
-    loss, _ = task.loss_fn(tr, task.frozen, batch)
+    if summed_logits:
+        loss = task.apply(tr, task.frozen, batch[0]).float().sum()
+    else:
+        loss, _ = task.loss_fn(tr, task.frozen, batch)
     grads = torch.autograd.grad(loss, tree_leaves(tr), allow_unused=True)
     out, i = {}, 0
-    for key in ("adapters", "head", "qadapter"):
-        n = len(tree_leaves(tr[key]))
-        out[key] = torch.cat([g.float().flatten() for g in grads[i:i + n]])
-        i += n
+    for key in sorted(tr):  # tree_leaves' order
+        leaves = tree_leaves(tr[key])
+        out[key] = torch.cat([(torch.zeros_like(t) if g is None else g).float().flatten()
+                              for t, g in zip(leaves, grads[i:i + len(leaves)])])
+        i += len(leaves)
     return out
+
+
+def _cosine(a, b):
+    return float(torch.dot(a, b) / (a.norm() * b.norm()))
+
+
+def _gradient_gate(checks, label, g_k, g_p, f32=False):
+    """Per group, kernels against the plain layer: in bf16 cosine >= 0.99 and
+    norm ratio 0.95-1.05 (phase 5's gate); in f32 max |diff| <= 1e-3 x
+    max |g| (the layer gradient parity of PERF.md section 2)."""
+    for key in g_k:
+        a, b = g_k[key], g_p[key]
+        cos, ratio = _cosine(a, b), float(a.norm() / b.norm())
+        if f32:
+            err, ref = float((a - b).abs().max()), float(b.abs().max())
+            ok, tol = err <= 1e-3 * ref, {"max_abs": 1e-3 * ref}
+            extra = {"max_abs_err": err, "max_abs_ref": ref}
+        else:
+            ok, tol, extra = cos >= 0.99 and 0.95 <= ratio <= 1.05, {"cosine": 0.99, "norm_ratio": [0.95, 1.05]}, {}
+        emit("parity", check=f"{label} gradients, {key}: kernels vs plain layer ({'f32' if f32 else 'bf16'})",
+             cosine=cos, norm_ratio=ratio, tol=tol, ok=ok, **extra)
+        if not ok:
+            checks.failed.append(f"{label} gradients {key}")
 
 
 def train_phase(checks, smi):
@@ -1452,15 +1509,7 @@ def train_phase(checks, smi):
     plain = build_mlgwsc(dataclasses.replace(enc_cfg, fused_block=False), qcfg, task.params, usr=False,
                          device=dev, acfg=acfg)
     g_k, g_p = _grad_groups(task, probe), _grad_groups(plain, probe)
-    for key in g_k:
-        a, b = g_k[key], g_p[key]
-        cos = float(torch.dot(a, b) / (a.norm() * b.norm()))
-        ratio = float(a.norm() / b.norm())
-        ok = cos >= 0.99 and 0.95 <= ratio <= 1.05
-        emit("parity", check=f"train-step gradients, {key}: kernels vs plain layer (bf16)", cosine=cos,
-             norm_ratio=ratio, tol={"cosine": 0.99, "norm_ratio": [0.95, 1.05]}, ok=ok)
-        if not ok:
-            checks.failed.append(f"train gradients {key}")
+    _gradient_gate(checks, "train-step", g_k, g_p)
     del plain, g_k, g_p
 
     counts = {"train": 0, "valid": 0}
@@ -1524,6 +1573,326 @@ def train_phase(checks, smi):
     profiled("train_profile", lambda: trainer.run_epoch(steps[:3]), steps=3)
     return launches
 
+MEL_BATCH, MEL_BATCHES, MEL_TRAIN_BATCH = 64, 8, 16
+# bf16 logits on the kernels may lie at most this many times as far from the
+# f32 plain path as the plain bf16 layer's (PERF.md section 2: at T = 1500 on
+# random weights the logits' sample-to-sample span is below bf16's resolution,
+# so the span gate of the search reads rounding, not the kernels)
+BF16_VS_PLAIN = 2.0
+
+
+def _perturb_lora_b(task, seed):
+    """Non-zero LoRA B (drawn from a torch seed), so DoRA's low-rank path counts."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for layer in task.trainable.get("adapters") or []:
+            for entry in layer.values():
+                entry["b"].copy_(torch.randn(entry["b"].shape, generator=gen) * 0.02)
+
+
+def _mel_gate(checks, label, task, strain):
+    """The card's log-mel (cuFFT, cuBLAS) against the plain CPU path on the
+    same strain: 2e-3 absolute, gwkit's bound against float64."""
+    with torch.no_grad():
+        card = torch.cat(task.log_mels(strain)).cpu()
+        cpu = torch.cat(task.log_mels(strain.cpu()))
+    err = float((card - cpu).abs().max())
+    ok = bool(torch.isfinite(card).all()) and err <= 2e-3 and card.shape[-2:] == (80, task.n_frames)
+    emit("parity", check=f"{label}: log-mel on the card vs the plain CPU path", max_abs_err=err,
+         mean_abs_err=float((card - cpu).abs().mean()), shape=list(card.shape), tol=2e-3, ok=ok)
+    if not ok:
+        checks.failed.append(f"{label} log-mel")
+
+
+def _mel_forward(checks, smi, label, task, batches, samples_per_batch):
+    """The counted forward over ``batches`` (exactly 4 A, 8 B and 4 C a batch,
+    no plain call), samples/s, a profiled pass; then against the f32 plain
+    path: every token of the first batch's encoder output in bf16 on the
+    kernels (TOL), the first 2 batches' logits in f32 on the kernels (1e-3)
+    and in bf16 (BF16_VS_PLAIN times the plain bf16 layer's distance; the
+    span gate of the search printed beside it)."""
+    from gwkit_torch.models.whisper import WhisperEncoder
+
+    enc = task.cfg.encoder
+    task.forward(batches[0])  # prepares (folds) the encoder; cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    _cuda.reset_counts()
+    t0 = time.time()
+    logits = [task.forward(x) for x in batches]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, plain = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+    nb, nl = len(batches), enc.n_layers
+    expect = {"attention": nl * nb, "attention_bwd": 0, "ln_gemm": 2 * nl * nb, "fused_mlp": nl * nb, "int8_gemm": 0}
+    out = torch.cat(logits).float()
+    ok = launches == expect and not plain and bool(torch.isfinite(out).all()) and \
+        out.shape == (nb * samples_per_batch, task.cfg.num_classes)
+    emit(label, card=smi, batches=nb, samples=nb * samples_per_batch,
+         sequences=nb * samples_per_batch * task.cfg.n_detectors, tokens_per_sequence=task.n_frames // 2,
+         wall_s=wall, samples_per_s=nb * samples_per_batch / wall, launches=launches, expected_launches=expect,
+         plain_calls=plain, logits_finite=bool(torch.isfinite(out).all()), ok=ok)
+    if not ok:
+        checks.failed.append(f"{label} launch counters")
+    groups = profiled(f"{label}_profile", lambda: [task.forward(x) for x in batches], batches=nb,
+                      samples=nb * samples_per_batch)
+    seqs, T = samples_per_batch * task.cfg.n_detectors, task.n_frames // 2
+    bounds = _layer_bounds(seqs, T, enc.d_model, enc.d_ff, enc.n_heads, enc.compute_dtype)
+    per_launch = {}
+    for name, group, per_layer in (("attention", "attention_kernel", 1), ("ln_gemm", "ln_gemm_kernel", 2),
+                                   ("fused_mlp", "fused_mlp_kernel", 1)):
+        b = bounds[name]
+        per_launch[name] = {"device_ms_per_layer": groups.get(group, 0.0) * per_layer / max(launches[name], 1),
+                            "bound_ms_per_layer": sum(x[0] for x in b), "bound_by": [x[1] for x in b],
+                            "launches_per_layer": per_layer}
+    emit(f"{label}_kernels", card=smi, sequences=seqs, tokens=T, by_kernel=per_launch)
+
+    bf16 = torch.cat(logits[:2]).float().cpu()
+    del logits
+    mel0 = torch.cat(task.log_mels(batches[0]))
+    with torch.no_grad():
+        seq = WhisperEncoder(enc, task.params["encoder"], task.params.get("adapters"))(mel0).float()
+    refs = {}
+    for name, dt, fused in (("f32_plain", torch.float32, False), ("f32_kernels", torch.float32, True),
+                            ("bf16_plain", torch.bfloat16, False)):  # the same weights on other paths
+        t = _variant(task, dt, fused)
+        refs[name] = torch.cat([t.forward(x) for x in batches[:2]]).float().cpu()
+        if name == "f32_plain":  # every token of the first batch, not only the pooled last one
+            with torch.no_grad():
+                ref_seq = WhisperEncoder(t.cfg.encoder, t.params["encoder"], t.params.get("adapters"))(mel0)
+            checks.compare(f"{label} encoder output, all {seq.shape[1]} tokens: bf16 kernels vs f32 plain "
+                           "(first batch)", seq, ref_seq, TOL[torch.bfloat16])
+            del ref_seq, seq
+        del t
+        torch.cuda.empty_cache()
+    ref, k32, p16 = refs["f32_plain"], refs["f32_kernels"], refs["bf16_plain"]
+    checks.compare(f"{label} logits: f32 kernels vs f32 plain (first 2 batches)", k32, ref, 1e-3)
+    span = float(ref.max() - ref.min())
+    d, dp = (bf16 - ref).abs(), (p16 - ref).abs()
+    span_tol = {k: v * span for k, v in SEARCH_BF16_TOL.items()}
+    tol = {"max": BF16_VS_PLAIN * float(dp.max()), "mean": BF16_VS_PLAIN * float(dp.mean())}
+    ok_bf16 = float(d.max()) <= tol["max"] and float(d.mean()) <= tol["mean"]
+    extra = {}
+    if ref.shape[1] > 1:
+        extra["argmax_agreement"] = float((bf16.argmax(1) == ref.argmax(1)).float().mean())
+        extra["plain_bf16_argmax_agreement"] = float((p16.argmax(1) == ref.argmax(1)).float().mean())
+    corr = lambda a: float(np.corrcoef(a.flatten().numpy(), ref.flatten().numpy())[0, 1])
+    emit("parity", check=f"{label} logits: bf16 kernels vs f32 plain (first 2 batches)",
+         max_abs_err=float(d.max()), mean_abs_err=float(d.mean()), correlation=corr(bf16),
+         plain_bf16_max_abs_err=float(dp.max()), plain_bf16_mean_abs_err=float(dp.mean()),
+         plain_bf16_correlation=corr(p16), f32_logit_span=span, max_abs_logit=float(ref.abs().max()),
+         tol=tol, tol_rule=f"{BF16_VS_PLAIN} x the plain bf16 layer's distance from f32 (PERF.md section 2)",
+         span_gate={"tol_of_span": SEARCH_BF16_TOL, "tol": span_tol,
+                    "holds": float(d.max()) <= span_tol["max"] and float(d.mean()) <= span_tol["mean"]},
+         ok=ok_bf16, **extra)
+    if not ok_bf16:
+        checks.failed.append(f"{label} bf16 logits")
+    return launches
+
+
+def _variant(task, dtype, fused, **kw):
+    """``task``'s workload on the same weights in another precision or layer path."""
+    from gwkit_torch.train.tasks import build_glitch, build_signal_vs_noise
+
+    cfg = dataclasses.replace(task.cfg.encoder, compute_dtype=dtype, fused_block=fused)
+    if task.name == "signal_vs_noise":
+        return build_signal_vs_noise(cfg, task.params, task.acfg, num_classes=task.cfg.num_classes,
+                                     n_detectors=task.cfg.n_detectors, device=task.device)
+    return build_glitch(cfg, task.params, task.acfg, num_classes=task.cfg.num_classes,
+                        full_finetune=task.full_finetune, device=task.device)
+
+
+def _train_gradient_gates(checks, label, task, batch):
+    """The training step's gradients at T = 1500: in f32 the task's loss on
+    the kernels against the plain layer (the f32 gradient parity gate), in
+    bf16 the summed logits' (phase 5's gate; their cotangent does not
+    cancel between samples); the bf16 loss gradients' cosines are printed
+    beside them (PERF.md section 2 says why they are not gated)."""
+    plain16 = _variant(task, torch.bfloat16, False)
+    _gradient_gate(checks, f"{label} summed logits", _grad_groups(task, batch, True),
+                   _grad_groups(plain16, batch, True))
+    g16k, g16p = _grad_groups(task, batch), _grad_groups(plain16, batch)
+    del plain16
+    torch.cuda.empty_cache()
+    g32p = _grad_groups(_variant(task, torch.float32, False), batch)
+    torch.cuda.empty_cache()
+    _gradient_gate(checks, f"{label} loss", _grad_groups(_variant(task, torch.float32, True), batch), g32p, f32=True)
+    emit("reading", check=f"{label} loss gradients in bf16 (not gated)",
+         cosine={key: {"kernels_vs_plain_bf16": _cosine(g16k[key], g16p[key]),
+                       "kernels_vs_f32_plain": _cosine(g16k[key], g32p[key]),
+                       "plain_bf16_vs_f32_plain": _cosine(g16p[key], g32p[key])} for key in g16k})
+    torch.cuda.empty_cache()
+
+
+def _switches_check(checks, task, strain):
+    """WhisperConfig's use_flash_attention and fused_mlp (gwkit's switches)
+    on the unfused layer at T = 1500 in bf16: the forward on kernels A and C
+    (one each a layer, no plain call) against the f32 plain path (TOL), and
+    the adapter gradients of a fixed random projection of the output (A
+    saving its state, then D) against the plain bf16 layer's (phase 5's
+    gate)."""
+    from gwkit_torch.io import tree_leaves
+    from gwkit_torch.models.whisper import encoder_apply
+
+    enc, p = task.cfg.encoder, task.params
+    cfg = dataclasses.replace(enc, fused_block=False, use_flash_attention=True, fused_mlp=True)
+    plain = dataclasses.replace(enc, fused_block=False)
+    mel = task.log_mels(strain[:4])[0]
+    nl = enc.n_layers
+    _cuda.reset_counts()
+    with torch.no_grad():
+        out = encoder_apply(cfg, p["encoder"], mel, p["adapters"])
+    fwd = dict(_cuda.LAUNCHES)
+    # a fixed random projection of the output (its plain sum would cancel in the final LayerNorm)
+    w = torch.randn(out.shape, generator=torch.Generator().manual_seed(0)).to(out.device)
+    tr = _with_grad(p["adapters"])
+    _cuda.reset_counts()
+    g_k = torch.autograd.grad((encoder_apply(cfg, p["encoder"], mel, tr).float() * w).sum(), tree_leaves(tr))
+    bwd, plain_calls = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+    with torch.no_grad():
+        ref = encoder_apply(dataclasses.replace(plain, compute_dtype=torch.float32), p["encoder"], mel, p["adapters"])
+    checks.compare("switches: encoder output, unfused layer on A and C (bf16) vs f32 plain", out, ref,
+                   TOL[torch.bfloat16])
+    tr = _with_grad(p["adapters"])
+    g_p = torch.autograd.grad((encoder_apply(plain, p["encoder"], mel, tr).float() * w).sum(), tree_leaves(tr))
+    _gradient_gate(checks, "switches: projected output", {"adapters": torch.cat([g.float().flatten() for g in g_k])},
+                   {"adapters": torch.cat([g.float().flatten() for g in g_p])})
+    want = ({"attention": nl, "attention_bwd": 0, "ln_gemm": 0, "fused_mlp": nl, "int8_gemm": 0},
+            {"attention": nl, "attention_bwd": nl, "ln_gemm": 0, "fused_mlp": nl, "int8_gemm": 0})
+    ok = (fwd, bwd) == want and not plain_calls
+    emit("switches", sequences=len(mel), tokens=mel.shape[-1] // 2, forward_launches=fwd,
+         forward_backward_launches=bwd, expected=list(want), plain_calls=plain_calls, ok=ok)
+    if not ok:
+        checks.failed.append("switches launch counters")
+    torch.cuda.empty_cache()
+
+
+def _timed_steps(trainer, steps, windows=3):
+    """samples/s over ``windows`` timed passes of ``steps`` train steps."""
+    trainer.run_epoch(steps[:1], torch.Generator().manual_seed(0))
+    rates = []
+    for w in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trainer.run_epoch(steps, torch.Generator().manual_seed(w))
+        torch.cuda.synchronize()
+        rates.append(len(steps) * len(steps[0][0]) / (time.time() - t0))
+    return rates
+
+
+def mel_phase(checks, smi):
+    """Phase 6: the Signal_vs_Noise and glitch workloads at Whisper-tiny's
+    full width and context (3000 mel frames, T = 1500), bf16 on the kernel
+    chain. Returns the launches of the forward (mel) and of training (mel_train)."""
+    from types import SimpleNamespace
+
+    from gwkit_torch.cli.common import build_encoder_config
+    from gwkit_torch.data.datasets import InjectionDataset
+    from gwkit_torch.data.glitch import LabeledDataset
+    from gwkit_torch.models.adapters import AdapterConfig
+    from gwkit_torch.train.tasks import build_glitch, build_signal_vs_noise
+    from gwkit_torch.train.trainer import TrainConfig, Trainer
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    enc_cfg = build_encoder_config(SimpleNamespace(cpu=False, encoder="tiny"), 3000)  # the CLIs' card config
+    assert enc_cfg.fused_block and enc_cfg.compute_dtype == torch.bfloat16 and enc_cfg.gelu_approx
+    assert enc_cfg.max_positions == 1500 and not enc_cfg.quant_int8
+    acfg = AdapterConfig(r=8, alpha=32, use_dora=True, targets="qkvo")
+    # 1 s two-detector strain at 2048 Hz: N(0, 1) noise, half the samples with a chirp at SNR 5-15
+    rng = np.random.default_rng(6)
+    n = MEL_BATCH * MEL_BATCHES
+    ds = InjectionDataset(rng.normal(size=(n, 2, 2048)).astype(np.float32), _chirps(n // 2, rng), (5.0, 15.0), dev)
+    batches = [x for x, _, _ in ds.batches(torch.Generator().manual_seed(6), MEL_BATCH)]
+
+    # 6a: Signal_vs_Noise forward, batch 64 = 128 sequences x 1500 tokens
+    t0 = time.time()
+    task = build_signal_vs_noise(enc_cfg, None, acfg, device=dev, seed=0)
+    _perturb_lora_b(task, 0)
+    load_s = time.time() - t0
+    _mel_gate(checks, "mel", task, batches[0])
+    mel = _mel_forward(checks, smi, "mel", task, batches, MEL_BATCH)
+    _switches_check(checks, task, batches[0])
+    emit("mel_setup", load_s=load_s, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    # 6b: Signal_vs_Noise training, cli/train.py's recipe (AdamW 1e-5, clip 0), batch 16 = 32 x 1500
+    torch.cuda.reset_peak_memory_stats()
+    cfg = TrainConfig(learning_rate=1e-5, clip_norm=0.0, optimizer="adamw", batch_size=MEL_TRAIN_BATCH, seed=0)
+    train_task = build_signal_vs_noise(enc_cfg, {"encoder": task.frozen["encoder"]}, acfg, device=dev, seed=1)
+    _perturb_lora_b(train_task, 1)
+    del task
+    torch.cuda.empty_cache()
+    steps = list(ds.batches(torch.Generator().manual_seed(7), MEL_TRAIN_BATCH))[:6]
+    _train_gradient_gates(checks, "mel train-step", train_task, steps[0])
+    trainer = Trainer(train_task.loss_fn, train_task.trainable, train_task.frozen, cfg)
+    trainer.run_epoch(steps[:1], torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    _cuda.reset_counts()
+    t0 = time.time()
+    loss, _ = trainer.run_epoch(steps, torch.Generator().manual_seed(2))
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    mel_train, plain_calls = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+    ns, nl = len(steps), enc_cfg.n_layers
+    expect = {"attention": 2 * nl * ns, "attention_bwd": nl * ns, "ln_gemm": 2 * nl * ns, "fused_mlp": nl * ns,
+              "int8_gemm": 0}
+    rates = _timed_steps(trainer, steps[:4])
+    ok = mel_train == expect and not plain_calls and bool(np.isfinite(loss))
+    emit("mel_train", card=smi, recipe="Signal_vs_Noise (cli/train.py): whisper-tiny frozen (random, torch seed), "
+         "DoRA r=8 a=32 qkvo, two-channel head, 3000 mel frames (T = 1500), batch 16 (32 sequences), bf16, "
+         "AdamW 1e-5, clip 0", steps=ns, mean_loss=loss, wall_s=fit_s, samples_per_s=ns * MEL_TRAIN_BATCH / fit_s,
+         samples_per_s_by_window=rates, launches=mel_train, expected_launches=expect,
+         launches_per_train_step={"attention": 2 * nl, "attention_bwd": nl, "ln_gemm": 2 * nl, "fused_mlp": nl},
+         plain_calls=plain_calls, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ok=ok)
+    if not ok:
+        checks.failed.append("mel_train")
+    groups = profiled("mel_train_profile", lambda: trainer.run_epoch(steps[:3], torch.Generator().manual_seed(3)),
+                      steps=3)
+    seqs, T = MEL_TRAIN_BATCH * 2, train_task.n_frames // 2
+    d_ms, d_by = _bwd_bound(seqs * enc_cfg.n_heads, T, 2)
+    emit("mel_train_kernels", card=smi, sequences=seqs, tokens=T, by_kernel={"attention_bwd": {
+        "device_ms_per_launch": (groups.get("dq_kernel", 0.0) + groups.get("dkdv_kernel", 0.0)) / (3 * nl),
+        "bound_ms": d_ms, "bound_by": d_by, "grids_per_launch": 2}})
+    del trainer, train_task
+    torch.cuda.empty_cache()
+
+    # 6c: glitch, one detector, 11 classes: the forward at batch 64 under 6a's gates, one adapter
+    # step with dropout, one full fine-tuning step with the encoder's gradients through the kernels
+    grng = np.random.default_rng(8)
+    ng = MEL_BATCH * 4
+    strain = grng.normal(size=(ng, 2048)).astype(np.float32)
+    strain[: ng // 2] += grng.uniform(5, 15, size=(ng // 2, 1)).astype(np.float32) * _chirps(ng // 2, grng)[:, 0]
+    gds = LabeledDataset(strain, grng.integers(0, 11, ng), device=dev)
+    gbatches = list(gds.batches(torch.Generator().manual_seed(8), MEL_BATCH))
+    gtask = build_glitch(enc_cfg, None, acfg, device=dev, seed=2)
+    _perturb_lora_b(gtask, 2)
+    _mel_gate(checks, "glitch", gtask, gbatches[0][0])
+    glitch = _mel_forward(checks, smi, "glitch", gtask, [x for x, _ in gbatches], MEL_BATCH)
+    step = [(x[:MEL_TRAIN_BATCH], y[:MEL_TRAIN_BATCH]) for x, y in gbatches[:1]]
+    gtrainer = Trainer(gtask.loss_fn, gtask.trainable, gtask.frozen, cfg)
+    _cuda.reset_counts()
+    adapter_loss, _ = gtrainer.run_epoch(step, torch.Generator().manual_seed(4))  # dropout drawn from it
+    adapter_launches = dict(_cuda.LAUNCHES)
+    ft = build_glitch(enc_cfg, {"encoder": gtask.frozen["encoder"], "head": gtask.trainable["head"]}, acfg,
+                      full_finetune=True, device=dev)
+    _train_gradient_gates(checks, "glitch full fine-tuning", ft, step[0])
+    ftrainer = Trainer(ft.loss_fn, ft.trainable, ft.frozen, cfg)
+    _cuda.reset_counts()
+    ft_loss, _ = ftrainer.run_epoch(step, torch.Generator().manual_seed(5))
+    ft_launches, ft_plain_calls = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+    one_step = {"attention": 2 * nl, "attention_bwd": nl, "ln_gemm": 2 * nl, "fused_mlp": nl, "int8_gemm": 0}
+    ok = bool(np.isfinite(adapter_loss) and np.isfinite(ft_loss)) and adapter_launches == one_step and \
+        ft_launches == one_step and not ft_plain_calls
+    emit("glitch_train", adapter_step_loss=adapter_loss, full_finetune_step_loss=ft_loss,
+         adapter_step_launches=adapter_launches, full_finetune_step_launches=ft_launches,
+         expected_launches_per_step=one_step, plain_calls=ft_plain_calls,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ok=ok)
+    if not ok:
+        checks.failed.append("glitch training steps")
+    del gtrainer, ftrainer, ft, gtask
+    torch.cuda.empty_cache()
+    return mel, mel_train
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1547,6 +1916,7 @@ def main():
     del int8_task
     torch.cuda.empty_cache()
     train = train_phase(checks, smi)
+    mel, mel_train = mel_phase(checks, smi)
     kernels = []
     for name in KERNELS:
         r = records[name]
@@ -1562,7 +1932,8 @@ def main():
                         "library_ms": r["library_ms"], "grids_per_launch": GRIDS_PER_LAUNCH[name],
                         "launches_by_path": {"search": search.get(name, 0), "search_stream": search_stream.get(name, 0),
                                              "search_int8": search_int8.get(name, 0),
-                                             "train": train.get(name, 0)}, **extra})
+                                             "train": train.get(name, 0), "mel": mel.get(name, 0),
+                                             "mel_train": mel_train.get(name, 0)}, **extra})
     if checks.failed:
         print("chip_smoke: FAILED " + ", ".join(checks.failed), file=sys.stderr)
         sys.exit(1)

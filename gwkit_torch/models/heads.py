@@ -1,11 +1,13 @@
-"""Task heads (counterpart of ``gwkit/models/heads.py``): the ReLU MLP head
-used by the MLGWSC-1 task (``gwwhisper`` widths), its init and its dropout."""
+"""Task heads (counterpart of ``gwkit/models/heads.py``): the ReLU MLP
+heads of every task (``HEAD_WIDTHS``), their init and the glitch head's
+dropout, and the CNN head over the stacked per-detector embeddings."""
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gwkit_torch.io import Leaf
 
@@ -54,3 +56,25 @@ def mlp_head_apply(params: List[dict], x: torch.Tensor, *, dropout_rate: float =
                 keep = torch.rand(x.shape, generator=generator).to(x.device) < 1.0 - dropout_rate
                 x = torch.where(keep, x / (1.0 - dropout_rate), torch.zeros_like(x))
     return torch.softmax(x, dim=-1) if softmax else x
+
+
+def init_cnn_head(num_classes: int, generator: torch.Generator, channels=(2, 64, 128, 256)) -> dict:
+    """TwoChannelLIGOBinaryClassifierCNN's head: k=3 convolutions in gwkit's
+    (3, c_in, c_out) layout, U(+-1/sqrt(3 c_in)), then a linear layer."""
+    convs = []
+    for c_in, c_out in zip(channels[:-1], channels[1:]):
+        bound = 1.0 / np.sqrt(c_in * 3)
+        u = lambda *shape: (torch.rand(shape, generator=generator) * 2 - 1) * bound
+        convs.append({"w": u(3, c_in, c_out), "b": u(c_out)})
+    return {"convs": convs, "out": linear_init(channels[-1], num_classes, generator)}
+
+
+def cnn_head_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (B, 2, d_model) stacked per-detector embeddings -> (B, num_classes):
+    the detectors are the channels and d_model the length of each 'same'
+    convolution (ReLU after each), then the mean over the length and the
+    linear layer."""
+    h = x
+    for p in params["convs"]:
+        h = torch.relu(F.conv1d(h, p["w"].permute(2, 1, 0), p["b"], padding=1))
+    return h.mean(dim=-1) @ params["out"]["w"] + params["out"]["b"]

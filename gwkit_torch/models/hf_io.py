@@ -74,3 +74,31 @@ def load_hf_encoder(path_or_model, size: str = "tiny", **cfg_overrides):
     else:
         state = torch.load(path_or_model, map_location="cpu", weights_only=True)
     return cfg, encoder_params_from_state_dict(state, cfg)
+
+
+def encoder_state_dict_from_params(params: Dict, cfg: WhisperConfig) -> Dict[str, np.ndarray]:
+    """The inverse conversion, for HF consumers: the port's encoder
+    parameters (``layers`` a per-layer list) -> an HF WhisperEncoder state
+    dict of float32 numpy arrays."""
+    out = {
+        "conv1.weight": _np(params["conv1"]["w"]).transpose(2, 1, 0),
+        "conv1.bias": _np(params["conv1"]["b"]),
+        "conv2.weight": _np(params["conv2"]["w"]).transpose(2, 1, 0),
+        "conv2.bias": _np(params["conv2"]["b"]),
+        "embed_positions.weight": _np(params["pos"]),
+        "layer_norm.weight": _np(params["ln_post"]["g"]),
+        "layer_norm.bias": _np(params["ln_post"]["b"]),
+    }
+    names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+             "o": "self_attn.out_proj", "fc1": "fc1", "fc2": "fc2"}
+    for i in range(cfg.n_layers):
+        pre, p = f"layers.{i}", params["layers"][i]
+        for ours, theirs in names.items():
+            out[f"{pre}.{theirs}.weight"] = _np(p[ours]["w"]).T
+            if "b" in p[ours]:
+                out[f"{pre}.{theirs}.bias"] = _np(p[ours]["b"])
+        out[f"{pre}.self_attn_layer_norm.weight"] = _np(p["attn_ln"]["g"])
+        out[f"{pre}.self_attn_layer_norm.bias"] = _np(p["attn_ln"]["b"])
+        out[f"{pre}.final_layer_norm.weight"] = _np(p["mlp_ln"]["g"])
+        out[f"{pre}.final_layer_norm.bias"] = _np(p["mlp_ln"]["b"])
+    return out

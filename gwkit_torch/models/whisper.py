@@ -12,7 +12,9 @@ Parameters keep gwkit's layout (linear ``w`` (d_in, d_out), conv ``w``
 a Python loop. With ``cfg.fused_block`` each layer runs the CUDA kernel chain
 of :mod:`gwkit_torch.ops.fused_block` (its plain versions on the CPU), with
 ``cfg.quant_int8`` on int8 projections; otherwise the unfused ``_block``
-math, gwkit's default path (where ``quant_int8`` does nothing, as in gwkit).
+math, gwkit's default path (where ``quant_int8`` does nothing, as in gwkit),
+whose attention runs on kernel A at T >= 1024 with ``cfg.use_flash_attention``
+and whose MLP runs on kernel C with ``cfg.fused_mlp``, as gwkit's switches.
 
 Two entry points: :class:`WhisperEncoder` prepares the weights once and
 runs without gradients (the search); :func:`encoder_apply` takes the
@@ -30,10 +32,11 @@ import torch.nn.functional as F
 
 from gwkit_torch.device import no_tf32_convs
 from gwkit_torch.io import Leaf, tree_to
+from gwkit_torch.ops.attention import flash_attention
 from gwkit_torch.ops.dora import dora_linear
 from gwkit_torch.ops.fused_block import (FusedLayer, fold_layer, fused_encoder_block,
                                          fused_layer_apply)
-from gwkit_torch.ops.fused_mlp import _gelu
+from gwkit_torch.ops.fused_mlp import _gelu, fused_mlp_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +48,9 @@ class WhisperConfig:
     d_ff: int = 1536
     max_positions: int = 1500
     compute_dtype: torch.dtype = torch.float32
+    use_flash_attention: bool = False  # the unfused layer's attention on kernel A (K1) at T >= 1024
     gelu_approx: bool = False  # tanh GELU (gwkit's TPU setting) instead of erf
+    fused_mlp: bool = False  # the unfused layer's MLP on kernel C (ops.fused_mlp)
     fused_block: bool = False  # each layer on the kernel chain (ops.fused_block)
     quant_int8: bool = False  # int8 projections inside the fused layer (inference; needs fused_block)
 
@@ -144,9 +149,12 @@ def _attention(x: torch.Tensor, p: dict, cfg: WhisperConfig, adapters: Optional[
     q = (_proj(x, p["q"], ad.get("q")) * hd ** -0.5).reshape(B, T, H, hd)
     k = _proj(x, p["k"], ad.get("k")).reshape(B, T, H, hd)
     v = _proj(x, p["v"], ad.get("v")).reshape(B, T, H, hd)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
+    if cfg.use_flash_attention and T >= 1024:  # gwkit's switch point: no T x T scores in memory
+        o = flash_attention(q, k, v).reshape(B, T, D)
+    else:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
     return _proj(o, p["o"], ad.get("o"))
 
 
@@ -155,6 +163,9 @@ def _block(x: torch.Tensor, p: dict, cfg: WhisperConfig, adapters: Optional[dict
     already in the compute dtype."""
     h = _layer_norm(x, p["attn_ln"])
     x = x + _attention(h, p, cfg, adapters)
+    if cfg.fused_mlp:
+        return fused_mlp_block(x, p["mlp_ln"]["g"], p["mlp_ln"]["b"], p["fc1"]["w"], p["fc1"]["b"],
+                               p["fc2"]["w"], p["fc2"]["b"], approx=cfg.gelu_approx)
     h = _layer_norm(x, p["mlp_ln"])
     h = _gelu(_proj(h, p["fc1"]), cfg.gelu_approx)
     return x + _proj(h, p["fc2"])

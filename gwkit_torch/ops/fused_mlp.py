@@ -6,7 +6,9 @@ On CUDA tensors ``fused_mlp_block`` runs kernel C (``csrc/fused_mlp.cu``):
 LN statistics in f32, products accumulated in f32, GELU in the compute type,
 and the (rows, F) activation kept in shared memory; bfloat16 on wgmma and
 TMA (``hopper_fused_mlp_kernel``, F a multiple of 128), float32 on FMA. On CPU tensors it runs
-``_unfused``, the plain PyTorch version. The TPU kernel it replaces is
+``_unfused``, the plain PyTorch version. Where a gradient is wanted on the
+card, the backward recomputes the plain math and differentiates it (gwkit's
+``_fused_bwd``). The TPU kernel it replaces is
 ``gwkit/ops/fused_mlp.py::_mlp_kernel``; kernel C is also the MLP stage of
 the fused encoder block.
 """
@@ -34,12 +36,36 @@ def _gelu(x: torch.Tensor, approx: bool) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approx else "none")
 
 
-def _unfused(x, g, b, w1, b1, w2, b2, approx: bool = False) -> torch.Tensor:
-    """Plain path, gwkit's math: products in x's dtype."""
-    _cuda.count_plain("fused_mlp")
+def _mlp_math(x, g, b, w1, b1, w2, b2, approx: bool) -> torch.Tensor:
     h = _ln(x, g, b)
     h = _gelu(h @ w1 + b1.to(x.dtype), approx)
     return x + (h @ w2 + b2.to(x.dtype))
+
+
+def _unfused(x, g, b, w1, b1, w2, b2, approx: bool = False) -> torch.Tensor:
+    """Plain path, gwkit's math: products in x's dtype."""
+    _cuda.count_plain("fused_mlp")
+    return _mlp_math(x, g, b, w1, b1, w2, b2, approx)
+
+
+class _FusedMLP(torch.autograd.Function):
+    """Kernel C forward; the backward differentiates the plain math."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, w1, b1, w2, b2, approx):
+        ctx.save_for_backward(x, g, b, w1, b1, w2, b2)
+        ctx.approx = approx
+        return fused_mlp_block(x, g, b, w1, b1, w2, b2, approx)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(saved, ctx.needs_input_grad)]
+            out = _mlp_math(*ins, ctx.approx)
+            wrt = [t for t in ins if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wrt, dy) if wrt else ())
+        return (*(next(grads) if t.requires_grad else None for t in ins), None)
 
 
 def _launch(lib, stream: int, x2, g, b, w1, b1, w2, b2, out, approx: bool) -> None:
@@ -56,6 +82,8 @@ def fused_mlp_block(x, g, b, w1, b1, w2, b2, approx: bool = False) -> torch.Tens
     On CUDA: g, b, w1, w2 are used in x's dtype and b1, b2 in float32."""
     if x.device.type == "cpu":
         return _unfused(x, g, b, w1, b1, w2, b2, approx)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, g, b, w1, b1, w2, b2)):
+        return _FusedMLP.apply(x, g, b, w1, b1, w2, b2, approx)
     _cuda.require_cuda("fused_mlp_block", x, g, b, w1, b1, w2, b2)
     dt = x.dtype
     if dt not in _cuda.DTYPE_CODES:

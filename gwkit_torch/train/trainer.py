@@ -5,7 +5,9 @@ is optimized, the frozen one (the encoder) never is; Adam or AdamW behind
 global-norm clipping (clip 100); per-epoch train and validation loss in
 ``losses.txt`` as ``"%04d\\t%.6f\\t%.6f"``; ``train_config.json``;
 last/best/per-epoch checkpoints in gwkit's format, resume latest|best;
-early stopping; a wall-clock budget; the curriculum scheduler hook.
+early stopping; a wall-clock budget; the curriculum scheduler hook; an
+``eval_callback`` on each epoch's validation outputs and a
+``metrics_callback`` for each epoch's metrics.
 
 The optimizer is optax's arithmetic, not torch's: clipping scales by
 max_norm / ||g|| only when ||g|| >= max_norm (torch's ``clip_grad_norm_``
@@ -178,7 +180,8 @@ class Trainer:
     whatever the dataset yields, already on the device."""
 
     def __init__(self, loss_fn: Callable, trainable: dict, frozen: dict,
-                 cfg: TrainConfig = TrainConfig(), export_components: Optional[Callable] = None):
+                 cfg: TrainConfig = TrainConfig(), export_components: Optional[Callable] = None,
+                 metrics_callback: Optional[Callable[[int, dict], None]] = None):
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.frozen = frozen
@@ -186,6 +189,7 @@ class Trainer:
         self._set_trainable(trainable)
         self.opt_state = self.optimizer.init(self.params)
         self.export_components = export_components
+        self.metrics_callback = metrics_callback  # (epoch, {"train_loss": ..., ...}) -> None
 
     def _set_trainable(self, trainable: dict) -> None:
         self.trainable = trainable
@@ -220,9 +224,13 @@ class Trainer:
     def fit(self, train_batches: Callable[[torch.Generator], Iterable],
             valid_batches: Callable[[torch.Generator], Iterable], outdir: str,
             resume: Optional[str] = None, force: bool = False,
-            scheduler: Optional[CurriculumScheduler] = None) -> float:
+            scheduler: Optional[CurriculumScheduler] = None,
+            eval_callback: Optional[Callable[[int, dict, list], Optional[dict]]] = None) -> float:
         """Full training lifecycle. ``train_batches(generator)`` yields one
-        epoch of device batches. Returns the best validation loss."""
+        epoch of device batches. After each epoch ``eval_callback(epoch,
+        trainable, validation aux list)`` may return more metrics; the
+        epoch's metrics then go to the ``metrics_callback``. Returns the
+        best validation loss."""
         cfg = self.cfg
         os.makedirs(outdir, exist_ok=True)
         losses_path = os.path.join(outdir, "losses.txt")
@@ -247,10 +255,15 @@ class Trainer:
                 g_train, g_valid = _child(gen), _child(gen)
                 t0 = time.time()
                 train_loss, _ = self.run_epoch(train_batches(g_train), g_train, train=True)
-                val_loss, _ = self.run_epoch(valid_batches(g_valid), g_valid, train=False)
+                val_loss, val_aux = self.run_epoch(valid_batches(g_valid), g_valid, train=False)
                 dt = time.time() - t0
                 f.write(f"{epoch:04d}\t{train_loss:.6f}\t{val_loss:.6f}\n")
                 logging.info("epoch %04d train %.6f valid %.6f (%.1fs)", epoch, train_loss, val_loss, dt)
+                metrics = {"train_loss": train_loss, "val_loss": val_loss, "epoch_seconds": dt}
+                if eval_callback is not None:
+                    metrics.update(eval_callback(epoch, self.trainable, val_aux) or {})
+                if self.metrics_callback is not None:
+                    self.metrics_callback(epoch, metrics)
 
                 is_best = val_loss < best_val
                 if is_best:

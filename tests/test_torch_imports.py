@@ -1,6 +1,6 @@
 """The port stands alone: every module of gwkit_torch imports with jax,
-gwkit, h5py, safetensors and transformers blocked, and its entry points
-refuse to run on the CPU unless asked to."""
+gwkit, h5py, safetensors, transformers, matplotlib and tensorboard
+blocked, and its entry points refuse to run on the CPU unless asked to."""
 import os
 import subprocess
 import sys
@@ -12,7 +12,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKER = r"""
 import importlib.abc, importlib, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "gwkit", "h5py", "safetensors", "transformers")
+BLOCKED = ("jax", "jaxlib", "gwkit", "h5py", "safetensors", "transformers", "matplotlib", "tensorboard")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -36,6 +36,10 @@ def test_every_module_imports_with_jax_gwkit_and_hdf5_blocked():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert int(out.stdout.split()[0]) >= 20
+    for name in ("ops.stft", "ops.resample", "ops.mel", "data.glitch", "train.datasets_util",
+                 "utils.metrics_writer", "utils.plotting", "cli.train", "cli.train_glitch",
+                 "cli.evaluate_classifier"):  # the mel workloads' modules are among them
+        assert os.path.isfile(os.path.join(ROOT, "gwkit_torch", *name.split(".")) + ".py"), name
 
 
 def test_blocker_tells_gwkit_torch_from_gwkit():
@@ -95,6 +99,24 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         train_mlgwsc.main(["-d", str(tmp_path), "-o", str(tmp_path / "run")])
+    # the Signal_vs_Noise and glitch workloads
+    from gwkit_torch.cli import evaluate_classifier, train, train_glitch
+    from gwkit_torch.data.glitch import LabeledDataset
+    from gwkit_torch.train.tasks import build_glitch, build_signal_vs_noise
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_signal_vs_noise(WhisperConfig(), {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_glitch(WhisperConfig(), {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LabeledDataset(np.zeros((2, 8), np.float32), np.zeros(2, np.int64))
+    for cli, args in ((train, ["-d", str(tmp_path), "-o", str(tmp_path / "svn")]),
+                      (train_glitch, ["-d", str(tmp_path / "g.hdf"), "-o", str(tmp_path / "glitch")]),
+                      (evaluate_classifier, ["-d", "in.hdf", "--checkpoint", "best.npz", "-o", str(tmp_path / "ev")]),
+                      (evaluate_classifier, ["-d", "in.hdf", "--checkpoint", "best.npz", "-o", str(tmp_path / "ev"),
+                                             "--task", "glitch"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(args)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
