@@ -88,10 +88,30 @@ Phases, each printing one JSON line:
              (6c) glitch (one detector, 11 classes) under 6a's gates, a
              step with dropout and a full fine-tuning step with the
              encoder's gradients through the kernels;
+  7 eff      the efficiency workload at the same width and context,
+             through the CLIs' recipes without their HDF5 reading: (7a)
+             train_efficiency (batch 32, AdamW 1e-5, the epoch scheduler
+             over the ladder 30 20 10 with a rung an epoch,
+             --reset-optimizer): each epoch's SNR range equals its rung,
+             Adam's state is zero with count 0 after each reset, exactly
+             8 A, 4 D, 8 B and 4 C a step (4 A, 8 B, 4 C a validation
+             batch) and no plain call, finite losses, the checkpoints;
+             (7b) calculate_efficiencies --epochs all on 7a's checkpoints
+             (128 injections, 512 noises, the CLI's SNRs, FAPs and batch
+             16): 4 A, 8 B, 4 C a batch, the tables read back, the best
+             checkpoint's bf16 logits under BF16_VS_PLAIN and its table in
+             f32 on the kernels against the f32 plain path (equal but for
+             entries decided within 1e-3 x max |score| of a threshold,
+             counted), the bf16 table printed; (7c) real-event scoring of
+             two 32 s events, one raw (whitened by the slicer, --whiten),
+             one pre-whitened: window counts, 4 A, 8 B, 4 C a batch,
+             scores in [0, 1], the first batch's logits under
+             BF16_VS_PLAIN; samples/s, windows/s, the phase's wall time;
   kernels    one line per the kernel table (times, bound, launches, by
              path: search, search_stream, search_int8, train, mel,
-             mel_train); kernel E's times, bound and int_mm times are the
-             sums of its four launches a layer, kernel B's of its two;
+             mel_train, efficiency_train, efficiency, real_events); kernel
+             E's times, bound and int_mm times are the sums of its four
+             launches a layer, kernel B's of its two;
 then the card's name and power limit, and the result line last.
 Fails (non-zero exit, no result line) on any disagreement, and without CUDA.
 """
@@ -1666,6 +1686,14 @@ def _mel_forward(checks, smi, label, task, batches, samples_per_batch):
         torch.cuda.empty_cache()
     ref, k32, p16 = refs["f32_plain"], refs["f32_kernels"], refs["bf16_plain"]
     checks.compare(f"{label} logits: f32 kernels vs f32 plain (first 2 batches)", k32, ref, 1e-3)
+    _bf16_gate(checks, f"{label} logits: bf16 kernels vs f32 plain (first 2 batches)", bf16, ref, p16)
+    return launches
+
+
+def _bf16_gate(checks, label, bf16, ref, p16):
+    """bf16 logits on the kernels against the f32 plain path (CPU tensors):
+    within BF16_VS_PLAIN times the plain bf16 layer's distance (PERF.md
+    section 2), the search's span gate printed beside it."""
     span = float(ref.max() - ref.min())
     d, dp = (bf16 - ref).abs(), (p16 - ref).abs()
     span_tol = {k: v * span for k, v in SEARCH_BF16_TOL.items()}
@@ -1676,7 +1704,7 @@ def _mel_forward(checks, smi, label, task, batches, samples_per_batch):
         extra["argmax_agreement"] = float((bf16.argmax(1) == ref.argmax(1)).float().mean())
         extra["plain_bf16_argmax_agreement"] = float((p16.argmax(1) == ref.argmax(1)).float().mean())
     corr = lambda a: float(np.corrcoef(a.flatten().numpy(), ref.flatten().numpy())[0, 1])
-    emit("parity", check=f"{label} logits: bf16 kernels vs f32 plain (first 2 batches)",
+    emit("parity", check=label,
          max_abs_err=float(d.max()), mean_abs_err=float(d.mean()), correlation=corr(bf16),
          plain_bf16_max_abs_err=float(dp.max()), plain_bf16_mean_abs_err=float(dp.mean()),
          plain_bf16_correlation=corr(p16), f32_logit_span=span, max_abs_logit=float(ref.abs().max()),
@@ -1685,8 +1713,7 @@ def _mel_forward(checks, smi, label, task, batches, samples_per_batch):
                     "holds": float(d.max()) <= span_tol["max"] and float(d.mean()) <= span_tol["mean"]},
          ok=ok_bf16, **extra)
     if not ok_bf16:
-        checks.failed.append(f"{label} bf16 logits")
-    return launches
+        checks.failed.append(label)
 
 
 def _variant(task, dtype, fused, **kw):
@@ -1894,6 +1921,276 @@ def mel_phase(checks, smi):
     return mel, mel_train
 
 
+# phase 7: the efficiency workload (the CLIs' defaults: training batch 32, sweep batch 16,
+# real-event windows of 2048 samples every 204, batch 64)
+EFF_TRAIN, EFF_VALID, EFF_LADDER = (192, 96), (64, 32), ("30", "20", "10")
+EFF_WAVES, EFF_NOISES, EFF_GATED_SNRS = 128, 512, (5.0, 11.0, 23.0)
+EVENT_SECONDS, EVENT_STEP = 32, 204
+ONE_STEP = {"attention": 8, "attention_bwd": 4, "ln_gemm": 8, "fused_mlp": 4, "int8_gemm": 0}
+ONE_FORWARD = {"attention": 4, "attention_bwd": 0, "ln_gemm": 8, "fused_mlp": 4, "int8_gemm": 0}
+
+
+def _times(counts, n):
+    return {k: v * n for k, v in counts.items()}
+
+
+def _delta(before):
+    return {k: _cuda.LAUNCHES[k] - before[k] for k in before}
+
+
+def _recorded(ds, kind, log):
+    """``ds.batches`` recording the SNR range at each epoch's start and each
+    batch's launches (what ran between its yield and the next request)."""
+    batches = ds.batches
+
+    def wrapped(*a, **kw):
+        log[f"{kind}_snr_ranges"].append(tuple(float(v) for v in ds.snrs()))
+        for b in batches(*a, **kw):
+            before = dict(_cuda.LAUNCHES)
+            yield b
+            log[f"{kind}_launches"].append(_delta(before))
+    ds.batches = wrapped
+
+
+def _table_agreement(est, got, want):
+    """Two efficiency tables from (noise, waves) scores: equal, except that an
+    entry may differ by one sample where the deciding score (an injection's,
+    or the next-ranked noise score) lies within 1e-3 x max |score| of the
+    threshold. Returns (ok, the entries that differ)."""
+    (noise, waves), (w_noise, w_waves) = got, want
+    tol = 1e-3 * max(np.abs(w_noise).max(), max(np.abs(w).max() for w in w_waves))
+    t_got, t_want = est.table(noise, waves), est.table(w_noise, w_waves)
+    ranked, ok, entries = np.sort(w_noise), True, []
+    for i, j in zip(*np.nonzero(t_got != t_want)):
+        p = len(ranked) - max(int(est.faps[j] * len(ranked)), 1)
+        near = min(float(np.abs(w_waves[i] - ranked[p]).min()),
+                   *(float(abs(ranked[q] - ranked[p])) for q in (p - 1, p + 1) if 0 <= q < len(ranked)))
+        one = abs(t_got[i, j] - t_want[i, j]) * len(w_waves[i]) <= 1 + 1e-9
+        ok = ok and one and near <= tol
+        entries.append({"snr": est.snrs[i], "fap": est.faps[j], "got": float(t_got[i, j]),
+                        "want": float(t_want[i, j]), "deciding_distance": near, "tol": tol})
+    return ok, entries, t_got, t_want
+
+
+def _read_table(path):
+    lines = open(path).read().splitlines()
+    return lines[0], np.array([[float(v) for v in ln.split("\t")] for ln in lines[1:]])
+
+
+def efficiency_phase(checks, smi):
+    """Phase 7: the efficiency workload at Whisper-tiny's full width and
+    context through the CLIs' recipes (their HDF5 reading aside), bf16 on
+    the kernel chain: (7a) train_efficiency's curriculum, (7b)
+    calculate_efficiencies on 7a's checkpoints, (7c) real-event scoring.
+    Returns the launches of each path."""
+    from gwkit_torch.cli import calculate_efficiencies, real_events, train_efficiency
+    from gwkit_torch.cli.common import load_task
+    from gwkit_torch.data.datasets import InjectionDataset
+    from gwkit_torch.evaluation.efficiency import EfficiencyEstimator
+    from gwkit_torch.search.realevents import score_event_segments
+    from gwkit_torch.search.slicer import DeviceSlicer, Segment, SlicerConfig
+    from gwkit_torch.train.tasks import build_signal_vs_noise
+    from gwkit_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(10)
+    train_ds = InjectionDataset(rng.normal(size=(EFF_TRAIN[0], 2, 2048)).astype(np.float32),
+                                _chirps(EFF_TRAIN[1], rng), device=dev)
+    valid_ds = InjectionDataset(rng.normal(size=(EFF_VALID[0], 2, 2048)).astype(np.float32),
+                                _chirps(EFF_VALID[1], rng), device=dev)
+    log = {k: [] for k in ("train_snr_ranges", "train_launches", "valid_snr_ranges", "valid_launches", "resets")}
+    _recorded(train_ds, "train", log)
+    _recorded(valid_ds, "valid", log)
+    reset = Trainer.reset_optimizer
+
+    def recorded_reset(self):
+        before = self.opt_state.count
+        reset(self)
+        st = self.opt_state
+        log["resets"].append({"count_before": before, "count_after": st.count,
+                              "moments_zero": all(not bool(t.any()) for t in st.mu + st.nu)})
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eff_") as out:
+        # 7a: train_efficiency's recipe: the epoch scheduler over the ladder 30 20 10 (a rung an
+        # epoch), --reset-optimizer, AdamW 1e-5, clip 0, batch 32, random weights from torch seed 0
+        targs = train_efficiency.parse_args(["-d", "(in memory)", "-o", out, "--epochs", "3", "--scheduler", "epoch",
+                                             "--scheduler-patience", "0", "--snr-ladder", *EFF_LADDER,
+                                             "--reset-optimizer", "--seed", "0"])
+        Trainer.reset_optimizer = recorded_reset
+        _cuda.reset_counts()
+        t0 = time.time()
+        try:
+            trainer = train_efficiency.train(targs, train_ds, valid_ds, dev)
+        finally:
+            Trainer.reset_optimizer = reset
+        torch.cuda.synchronize()
+        fit_s = time.time() - t0
+        eff_train, plain_calls = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+        run = os.path.join(out, "run_0000")
+        losses = np.loadtxt(os.path.join(run, "losses.txt")).reshape(-1, 3)
+        rungs = [(25.0, 30.0), (15.0, 20.0), (5.0, 10.0)]
+        n_steps = EFF_TRAIN[0] // 32
+        files = [f"state_e_{e:04d}.npz" for e in (1, 2, 3)] + ["best.npz"]
+        gates = {
+            "snr_ranges": log["train_snr_ranges"] == rungs and log["valid_snr_ranges"] == rungs,
+            "resets": [(r["count_before"], r["count_after"], r["moments_zero"]) for r in log["resets"]]
+            == [(0, 0, True), (n_steps, 0, True), (n_steps, 0, True)] and trainer.opt_state.count == n_steps,
+            "launches_a_step": len(log["train_launches"]) == 3 * n_steps
+            and all(x == ONE_STEP for x in log["train_launches"]),
+            "launches_a_validation_batch": len(log["valid_launches"]) == 3 * (EFF_VALID[0] // 32)
+            and all(x == ONE_FORWARD for x in log["valid_launches"]),
+            "no_plain_call": not plain_calls,
+            "losses_finite": losses.shape == (3, 3) and bool(np.isfinite(losses).all()),
+            "checkpoints": all(os.path.isfile(os.path.join(run, f)) for f in files),
+        }
+        ok = all(gates.values())
+        snr_ranges = {"train": list(log["train_snr_ranges"]), "valid": list(log["valid_snr_ranges"])}
+        steps = list(train_ds.batches(torch.Generator().manual_seed(7), 32))[:4]
+        rates = _timed_steps(trainer, steps)
+        emit("efficiency_train", card=smi, recipe="train_efficiency: whisper-tiny frozen (random, torch seed 0), "
+             "DoRA r=8 a=32 qkvo, two-channel head, 3000 mel frames (T = 1500), batch 32 (64 sequences), bf16, "
+             "AdamW 1e-5, clip 0, EpochCLScheduler(patience=0) over 30 20 10, --reset-optimizer",
+             epochs=3, steps=3 * n_steps, validation_batches=len(log["valid_launches"]), losses=losses.tolist(),
+             snr_ranges=snr_ranges, resets=log["resets"],
+             launches=eff_train, launches_per_step=ONE_STEP, plain_calls=plain_calls, fit_s=fit_s,
+             fit_samples_per_s=3 * (EFF_TRAIN[0] + EFF_VALID[0]) / fit_s, samples_per_s_by_window=rates,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, gates=gates, ok=ok)
+        if not ok:
+            checks.failed.append("efficiency_train: " + ", ".join(k for k, v in gates.items() if not v))
+        profiled("efficiency_train_profile", lambda: trainer.run_epoch(steps[:3], torch.Generator().manual_seed(3)),
+                 steps=3)
+        del trainer, steps, train_ds, valid_ds
+        torch.cuda.empty_cache()
+
+        # 7b: calculate_efficiencies' recipe on 7a's three checkpoints (--epochs all): 128
+        # injections (noise plus a chirp) and 512 noises, the CLI's SNRs, FAPs and batch 16
+        torch.cuda.reset_peak_memory_stats()
+        srng = np.random.default_rng(11)
+        ds = InjectionDataset(srng.normal(size=(EFF_WAVES + EFF_NOISES, 2, 2048)).astype(np.float32),
+                              _chirps(EFF_WAVES, srng), device=dev)
+        sargs = calculate_efficiencies.parse_args(["-d", "(in memory)", "--checkpoint-dir", run, "-o",
+                                                   os.path.join(out, "tables"), "--epochs", "all", "--seed", "0"])
+        per_ckpt = -(-EFF_NOISES // sargs.batch_size) + len(sargs.snrs) * -(-EFF_WAVES // sargs.batch_size)
+        _cuda.reset_counts()
+        t0 = time.time()
+        tables = calculate_efficiencies.sweep(sargs, ds, dev)
+        torch.cuda.synchronize()
+        sweep_s = time.time() - t0
+        eff, plain_calls = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+        n_batches = 3 * per_ckpt
+        read_ok = True
+        for name, table in tables.items():
+            header, rows = _read_table(os.path.join(sargs.output_dir, f"out_efficiencies_{name}.txt"))
+            read_ok = read_ok and header == "# SNR\t" + "\t".join(f"FAP={f:g}" for f in sargs.faps) and \
+                rows.shape == (len(sargs.snrs), len(sargs.faps) + 1) and np.array_equal(rows[:, 0], sargs.snrs) and \
+                np.array_equal(rows[:, 1:], [[float(f"{v:.6f}") for v in row] for row in table])
+        ok = eff == _times(ONE_FORWARD, n_batches) and not plain_calls and sorted(tables) == \
+            ["state_e_0001", "state_e_0002", "state_e_0003"] and read_ok
+        scored = 3 * (EFF_NOISES + len(sargs.snrs) * EFF_WAVES)
+        emit("efficiency", card=smi, recipe="calculate_efficiencies --epochs all on 7a's checkpoints: 128 injections, "
+             "512 noises, SNRs 5..23, FAPs 1e-1..1e-4, batch 16 (32 sequences x 1500 tokens), bf16",
+             checkpoints=sorted(tables), batches=n_batches, launches=eff, expected_launches=_times(ONE_FORWARD, n_batches),
+             plain_calls=plain_calls, tables_read_back=read_ok, wall_s=sweep_s, samples_scored=scored,
+             samples_per_s=scored / sweep_s, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ok=ok)
+        if not ok:
+            checks.failed.append("efficiency sweep")
+
+        # the best checkpoint: its bf16 scores under phase 6's rule, its table in f32 on the kernels
+        # against the f32 plain path at three SNRs, the bf16 table beside them (not gated: PERF.md section 2)
+        task = load_task(sargs, build_signal_vs_noise, dev, os.path.join(run, "best.npz"))
+        wave_ds, noise_ds = calculate_efficiencies.split_dataset(ds, dev)
+        est = EfficiencyEstimator(wave_ds, noise_ds, EFF_GATED_SNRS, sargs.batch_size, sargs.faps)
+        scores = {}
+
+        def bf16_scores():  # profiled: where a sweep's time goes
+            scores["bf16_kernels"] = est.scores(lambda x: task.forward(x).reshape(-1), seed=0)
+
+        n_gated = -(-EFF_NOISES // sargs.batch_size) + len(EFF_GATED_SNRS) * -(-EFF_WAVES // sargs.batch_size)
+        profiled("efficiency_profile", bf16_scores, checkpoint="best.npz", batches=n_gated,
+                 samples=EFF_NOISES + len(EFF_GATED_SNRS) * EFF_WAVES)
+        for name, t in (("f32_kernels", _variant(task, torch.float32, True)),
+                        ("f32_plain", _variant(task, torch.float32, False))):
+            scores[name] = est.scores(lambda x: t.forward(x).reshape(-1), seed=0)
+            torch.cuda.empty_cache()
+        first = [x for x, _, _ in noise_ds.batches(torch.Generator(), sargs.batch_size, shuffle=False)][:2]
+        p16 = _variant(task, torch.bfloat16, False)
+        logit = lambda t: torch.cat([t.forward(x) for x in first]).float().cpu()
+        _bf16_gate(checks, "efficiency logits: bf16 kernels vs f32 plain (first 2 noise batches of the best "
+                   "checkpoint)", logit(task), logit(_variant(task, torch.float32, False)), logit(p16))
+        del p16
+        ok32, entries, t32, tref = _table_agreement(est, scores["f32_kernels"], scores["f32_plain"])
+        emit("efficiency_table", card=smi, checkpoint="best.npz", snrs=list(EFF_GATED_SNRS), faps=sargs.faps,
+             f32_kernels=t32.tolist(), f32_plain=tref.tolist(), bf16_kernels=est.table(*scores["bf16_kernels"]).tolist(),
+             thresholds={k: est.thresholds(v[0]).tolist() for k, v in scores.items()},
+             f32_noise_score_span=float(np.ptp(scores["f32_plain"][0])),
+             max_abs_score=float(np.abs(scores["f32_plain"][0]).max()),
+             differing_entries=entries, n_differing=len(entries),
+             rule="equal, but an entry may differ by one sample where the deciding score lies within 1e-3 x max "
+                  "|score| of its threshold", ok=ok32)
+        if not ok32:
+            checks.failed.append("efficiency table f32")
+        del task, wave_ds, noise_ds, ds, scores, est
+        torch.cuda.empty_cache()
+
+        # 7c: two events of 32 s: one raw (the CLI's --whiten: the slicer whitens it on the card,
+        # a chirp at amplitude 12 inside), one pre-whitened; windows 2048, step 204, batch 64
+        erng = np.random.default_rng(12)
+        n = EVENT_SECONDS * 2048
+        raw = erng.normal(size=(2, n)).astype(np.float32)
+        c0 = n // 2 - 2048  # the chirp's second
+        raw[:, c0:c0 + 2048] += 12.0 * _chirps(1, erng)[0]
+        white = erng.normal(size=(2, n)).astype(np.float32)
+        best = os.path.join(run, "best.npz")
+        rargs = {w: real_events.parse_args(["-d", "(in memory)", "--checkpoint", best, "-o", "scores.hdf", "--seed", "0"]
+                                           + (["--whiten"] if w else [])) for w in (True, False)}
+        task = load_task(rargs[True], build_signal_vs_noise, dev, best, input_sample_rate=int(rargs[True].sample_rate))
+        events = {"raw": ({"GW_raw": raw}, rargs[True]), "white": ({"GW_white": white}, rargs[False])}
+
+        def score_all():
+            got = {}
+            for ev, a in events.values():
+                got.update(score_event_segments(task, ev, sample_rate=a.sample_rate, window=a.window, step=a.step,
+                                                batch_size=a.batch_size, white=not a.whiten))
+            return got
+
+        score_all()  # warm: cuDNN picks its algorithms for batch 64
+        torch.cuda.synchronize()
+        _cuda.reset_counts()
+        t0 = time.time()
+        got = score_all()
+        torch.cuda.synchronize()
+        ev_s = time.time() - t0
+        real, plain_calls = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+        half = int(SlicerConfig().max_filter_duration * 2048) // 2
+        want_n = {"GW_raw": 1 + (n - 2 * half - 2048) // EVENT_STEP, "GW_white": 1 + (n - 2048) // EVENT_STEP}
+        n_batches = sum(-(-v // rargs[True].batch_size) for v in want_n.values())
+        ok = {k: len(v) for k, v in got.items()} == want_n and real == _times(ONE_FORWARD, n_batches) and \
+            not plain_calls and all(bool(((v >= 0) & (v <= 1)).all()) for v in got.values())
+        windows = sum(want_n.values())
+        emit("real_events", card=smi, recipe="real_events on 7a's best checkpoint: 2 events x 32 s x 2 detectors, "
+             "one raw (whitened by the slicer, --whiten), one pre-whitened; window 2048, step 204, batch 64, bf16",
+             windows=want_n, got_windows={k: len(v) for k, v in got.items()}, batches=n_batches, launches=real,
+             expected_launches=_times(ONE_FORWARD, n_batches), plain_calls=plain_calls,
+             max_score={k: float(v.max()) for k, v in got.items()}, chirp_window_score=float(got["GW_raw"][
+                 (c0 - half) // EVENT_STEP]), wall_s=ev_s, windows_per_s=windows / ev_s, ok=ok)
+        if not ok:
+            checks.failed.append("real_events")
+        profiled("real_events_profile", score_all, batches=n_batches, windows=windows)
+        cfg = SlicerConfig(step_size=EVENT_STEP / 2048, slice_length=2048, batch_size=64, peak_offset=0.0)
+        seg = Segment(key="GW_raw", strain=raw, start_time=0.0, delta_t=1 / 2048)
+        x = next(DeviceSlicer(seg, cfg, white=False, device=dev).batches())[0]
+        logit = lambda t: t.forward(x).float().cpu()
+        _bf16_gate(checks, "real_events logits: bf16 kernels vs f32 plain (first batch of the raw event)",
+                   logit(task), logit(_variant(task, torch.float32, False)), logit(_variant(task, torch.bfloat16, False)))
+        del task
+        torch.cuda.empty_cache()
+    emit("efficiency_phase", wall_s=time.time() - t_phase)
+    return eff_train, eff, real
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1917,6 +2214,7 @@ def main():
     torch.cuda.empty_cache()
     train = train_phase(checks, smi)
     mel, mel_train = mel_phase(checks, smi)
+    eff_train, eff, real = efficiency_phase(checks, smi)
     kernels = []
     for name in KERNELS:
         r = records[name]
@@ -1933,7 +2231,10 @@ def main():
                         "launches_by_path": {"search": search.get(name, 0), "search_stream": search_stream.get(name, 0),
                                              "search_int8": search_int8.get(name, 0),
                                              "train": train.get(name, 0), "mel": mel.get(name, 0),
-                                             "mel_train": mel_train.get(name, 0)}, **extra})
+                                             "mel_train": mel_train.get(name, 0),
+                                             "efficiency_train": eff_train.get(name, 0),
+                                             "efficiency": eff.get(name, 0), "real_events": real.get(name, 0)},
+                        **extra})
     if checks.failed:
         print("chip_smoke: FAILED " + ", ".join(checks.failed), file=sys.stderr)
         sys.exit(1)

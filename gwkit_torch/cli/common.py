@@ -157,6 +157,32 @@ def load_encoder_params(args, enc_cfg):
     return from_gwkit_numpy(encoder=params)["encoder"]
 
 
+def load_task(args, build, device, checkpoint: Optional[str] = None, **kw):
+    """The mel CLIs' task: ``build`` (``build_signal_vs_noise`` or
+    ``build_glitch``) on :func:`build_encoder_config`'s encoder, the base
+    encoder of ``--hf-checkpoint``/``--pretrained-encoder`` and the adapter
+    flags, at ``args.input_sample_rate`` unless ``kw`` says otherwise; with
+    ``checkpoint``'s trainables when given."""
+    enc_cfg = build_encoder_config(args, args.n_frames)
+    encoder = load_encoder_params(args, enc_cfg)
+    if "input_sample_rate" not in kw:
+        kw["input_sample_rate"] = args.input_sample_rate
+    task = build(enc_cfg, {"encoder": encoder} if encoder is not None else None, acfg=build_adapter_config(args),
+                 n_frames=args.n_frames, device=device, seed=args.seed, **kw)
+    if checkpoint:
+        load_checkpoint(task, checkpoint)
+    return task
+
+
+def load_checkpoint(task, path: str) -> None:
+    """Replace the task's trainables with a checkpoint's (gwkit's tree
+    layout, either package's ``best.npz`` or ``state_e_*.npz``)."""
+    from gwkit_torch.train.checkpoints import from_gwkit_tree, load_pytree, to_gwkit_tree
+
+    loaded, _ = load_pytree(path, to_gwkit_tree(task.trainable))
+    task.trainable = from_gwkit_tree(loaded, task.device)
+
+
 def check_file_existence(path: Optional[str], force: bool) -> None:
     """Refuse to overwrite an existing output unless --force."""
     if path is not None and os.path.isfile(path) and not force:

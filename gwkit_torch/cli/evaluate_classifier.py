@@ -26,9 +26,8 @@ from argparse import ArgumentParser
 
 import numpy as np
 
-from gwkit_torch.cli.common import (add_adapter_args, add_common_args, build_adapter_config,
-                                    build_encoder_config, configure_logging, dump_config,
-                                    load_encoder_params, parse_with_config)
+from gwkit_torch.cli.common import (add_adapter_args, add_common_args, configure_logging, dump_config, load_task,
+                                    parse_with_config)
 
 
 def parse_args(argv=None):
@@ -56,20 +55,6 @@ def parse_args(argv=None):
     return parse_with_config(p, argv)
 
 
-def _load_task(args, build, device, **kw):
-    """The task with the checkpoint's trainables (gwkit's tree layout)."""
-    from gwkit_torch.train.checkpoints import from_gwkit_tree, load_pytree, to_gwkit_tree
-
-    enc_cfg = build_encoder_config(args, args.n_frames)
-    encoder = load_encoder_params(args, enc_cfg)
-    task = build(enc_cfg, {"encoder": encoder} if encoder is not None else None, acfg=build_adapter_config(args),
-                 input_sample_rate=args.input_sample_rate, n_frames=args.n_frames, device=device,
-                 seed=args.seed, **kw)
-    loaded, _ = load_pytree(args.checkpoint, to_gwkit_tree(task.trainable))
-    task.trainable = from_gwkit_tree(loaded, device)
-    return task
-
-
 def main(argv=None):
     args = parse_args(argv)
     configure_logging(verbose=args.verbose, debug=args.debug)
@@ -89,7 +74,7 @@ def main(argv=None):
     with h5py.File(args.dataset, "r") as f:
         group = "validation" if "validation" in f else "training"
         ds = InjectionDataset.load(f, group, device=device)
-    task = _load_task(args, build_signal_vs_noise, device)
+    task = load_task(args, build_signal_vs_noise, device, args.checkpoint)
     plots = importlib.util.find_spec("matplotlib") is not None
     if not plots:
         logging.warning("matplotlib is not installed: the roc_snr*.png plots are skipped")
@@ -135,7 +120,7 @@ def _evaluate_glitch(args, device):
     n_valid = int(len(labels) * args.valid_fraction)
     if n_valid:
         strain, labels = strain[:n_valid], labels[:n_valid]
-    task = _load_task(args, build_glitch, device, num_classes=args.num_classes)
+    task = load_task(args, build_glitch, device, args.checkpoint, num_classes=args.num_classes)
     preds = np.concatenate([
         task.forward(torch.from_numpy(np.asarray(strain[i:i + args.batch_size], np.float32)).to(device))
         .argmax(dim=-1).cpu().numpy()

@@ -20,9 +20,8 @@ from argparse import ArgumentParser
 
 import numpy as np
 
-from gwkit_torch.cli.common import (add_adapter_args, add_common_args, build_adapter_config,
-                                    build_encoder_config, configure_logging, dump_config,
-                                    load_encoder_params, parse_with_config)
+from gwkit_torch.cli.common import (add_adapter_args, add_common_args, configure_logging, dump_config, load_task,
+                                    parse_with_config)
 
 
 def parse_args(argv=None):
@@ -59,12 +58,7 @@ def main(argv=None):
     device = resolve_device("cpu" if args.cpu else None)
     paths = sorted(glob.glob(os.path.join(args.dataset, "*"))) if os.path.isdir(args.dataset) else [args.dataset]
     train_ds, valid_ds = load_concat_datasets(paths, snr_range=tuple(args.snr), device=device)
-    enc_cfg = build_encoder_config(args, args.n_frames)
-    encoder = load_encoder_params(args, enc_cfg)
-    task = build_signal_vs_noise(enc_cfg, {"encoder": encoder} if encoder is not None else None,
-                                 acfg=build_adapter_config(args), input_sample_rate=args.input_sample_rate,
-                                 n_frames=args.n_frames, n_detectors=args.detectors, device=device,
-                                 seed=args.seed)
+    task = load_task(args, build_signal_vs_noise, device, n_detectors=args.detectors)
     trainer = Trainer(
         task.loss_fn, task.trainable, task.frozen,
         TrainConfig(learning_rate=args.learning_rate, epochs=args.epochs, batch_size=args.batch_size,

@@ -21,9 +21,8 @@ from argparse import ArgumentParser
 
 import numpy as np
 
-from gwkit_torch.cli.common import (add_adapter_args, add_common_args, build_adapter_config,
-                                    build_encoder_config, configure_logging, dump_config,
-                                    load_encoder_params, parse_with_config)
+from gwkit_torch.cli.common import (add_adapter_args, add_common_args, configure_logging, dump_config, load_task,
+                                    parse_with_config)
 
 
 def parse_args(argv=None):
@@ -66,12 +65,7 @@ def main(argv=None):
     train_ds = LabeledDataset(strain[n_valid:], labels[n_valid:], augment=args.augment, device=device)
     valid_ds = LabeledDataset(strain[:n_valid], labels[:n_valid], device=device)
 
-    enc_cfg = build_encoder_config(args, args.n_frames)
-    encoder = load_encoder_params(args, enc_cfg)
-    task = build_glitch(enc_cfg, {"encoder": encoder} if encoder is not None else None,
-                        acfg=build_adapter_config(args), num_classes=args.num_classes,
-                        input_sample_rate=args.input_sample_rate, full_finetune=args.full_finetune,
-                        n_frames=args.n_frames, device=device, seed=args.seed)
+    task = load_task(args, build_glitch, device, num_classes=args.num_classes, full_finetune=args.full_finetune)
     trainer = Trainer(
         task.loss_fn, task.trainable, task.frozen,
         TrainConfig(learning_rate=args.learning_rate, epochs=args.epochs, batch_size=args.batch_size,

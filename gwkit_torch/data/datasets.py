@@ -9,6 +9,11 @@
   one dataset, all injection rows first.
 * :func:`sample_pretrain_pairs` — InfoNCE pairs: two independently noised
   views of one waveform, or with probability p two pure-noise draws.
+* :class:`PartitionedDataset` — the efficiency test's index layout:
+  injections pairing waveform ``idx // noises_per_signal + wave_lo`` with
+  noise ``idx + comb_lo`` first, then pure noise from ``[pure_lo,
+  pure_hi)``; the SNR range is set at run time (curriculum and efficiency
+  sweeps).
 
 The arrays live on the device and batches are gathered and mixed there.
 Random draws (the SNRs, the shuffling, the pretraining pairs) come from a
@@ -151,3 +156,53 @@ def sample_pretrain_pairs(generator: torch.Generator, noises: torch.Tensor, wave
     noise_only = torch.rand((b, 1, 1), generator=generator).to(dev) < noise_only_prob
     scaled = torch.where(noise_only, torch.zeros_like(snr), snr) * wave
     return n1 + scaled, n2 + scaled
+
+
+@dataclasses.dataclass
+class PartitionedDataset:
+    """Index ranges partition the injection and pure-noise pools: the first
+    ``(wave_hi - wave_lo) * noises_per_signal`` indices are injections, the
+    rest pure noise. Waveforms and noises are [N, T] or [N, D, T].
+    ``device=None`` is the CUDA card (raises without one)."""
+
+    waveforms: torch.Tensor
+    noises: torch.Tensor
+    snr_range: Tuple[float, float]
+    wave_limits: Tuple[int, int]
+    noise_combined_limits: Tuple[int, int]
+    noise_pure_limits: Tuple[int, int]
+    noises_per_signal: int = 1
+    device: DeviceLike = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        as_tensor = lambda a: a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+        self.waveforms = as_tensor(self.waveforms).float().to(self.device)
+        self.noises = as_tensor(self.noises).float().to(self.device)
+        self.signal_samples = (self.wave_limits[1] - self.wave_limits[0]) * self.noises_per_signal
+        assert self.signal_samples == self.noise_combined_limits[1] - self.noise_combined_limits[0]
+
+    def __len__(self) -> int:
+        return self.signal_samples + (self.noise_pure_limits[1] - self.noise_pure_limits[0])
+
+    def snrs(self, *args):
+        """Get or set the SNR range."""
+        if len(args) == 0:
+            return self.snr_range
+        self.snr_range = tuple(args[0]) if len(args) == 1 else (args[0], args[1])
+
+    def sample_batch(self, generator: torch.Generator, indices: torch.Tensor):
+        """(x, y [B, 2], snr [B]) on the device; x has the waveforms' trailing shape."""
+        idx = torch.as_tensor(indices, device=self.device).long()
+        nw, nn = self.waveforms.shape[0], self.noises.shape[0]
+        is_wave = idx < self.signal_samples
+        wave_idx = (torch.div(idx, self.noises_per_signal, rounding_mode="floor")
+                    + self.wave_limits[0]).clamp(0, nw - 1)
+        noise_idx = torch.where(is_wave, (idx + self.noise_combined_limits[0]).clamp(0, nn - 1),
+                                (idx - self.signal_samples + self.noise_pure_limits[0]).clamp(0, nn - 1))
+        noise, wave = self.noises[noise_idx], self.waveforms[wave_idx]
+        snr = _uniform(generator, (idx.shape[0],), *self.snr_range, self.device)
+        expand = (...,) + (None,) * (noise.dim() - 1)
+        x = noise + torch.where(is_wave[expand], snr[expand] * wave, torch.zeros_like(wave))
+        labels = torch.tensor([WAVE_LABEL, NOISE_LABEL], device=self.device)
+        return x, labels[(~is_wave).long()], torch.where(is_wave, snr, torch.zeros_like(snr))

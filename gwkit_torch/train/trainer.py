@@ -5,7 +5,8 @@ is optimized, the frozen one (the encoder) never is; Adam or AdamW behind
 global-norm clipping (clip 100); per-epoch train and validation loss in
 ``losses.txt`` as ``"%04d\\t%.6f\\t%.6f"``; ``train_config.json``;
 last/best/per-epoch checkpoints in gwkit's format, resume latest|best;
-early stopping; a wall-clock budget; the curriculum scheduler hook; an
+early stopping; a wall-clock budget; the curriculum scheduler hook and
+the optimizer reset a curriculum step may ask for; an
 ``eval_callback`` on each epoch's validation outputs and a
 ``metrics_callback`` for each epoch's metrics.
 
@@ -288,3 +289,9 @@ class Trainer:
                     break
         logging.info("Training complete. Best validation loss: %.6f", best_val)
         return best_val
+
+    def reset_optimizer(self) -> None:
+        """A fresh optimizer state for the current trainables (a curriculum
+        step's reset): zero moments and step count 0, so Adam's bias
+        correction starts again, as optax's ``init``."""
+        self.opt_state = self.optimizer.init(self.params)

@@ -38,7 +38,10 @@ def test_every_module_imports_with_jax_gwkit_and_hdf5_blocked():
     assert int(out.stdout.split()[0]) >= 20
     for name in ("ops.stft", "ops.resample", "ops.mel", "data.glitch", "train.datasets_util",
                  "utils.metrics_writer", "utils.plotting", "cli.train", "cli.train_glitch",
-                 "cli.evaluate_classifier"):  # the mel workloads' modules are among them
+                 "cli.evaluate_classifier",  # the mel workloads' modules are among them
+                 "evaluation.efficiency", "evaluation.stream", "search.bulk", "search.realevents",
+                 "cli.train_efficiency", "cli.calculate_efficiencies", "cli.evaluate_stream", "cli.real_events",
+                 "cli.preprocess"):  # and the efficiency test's
         assert os.path.isfile(os.path.join(ROOT, "gwkit_torch", *name.split(".")) + ".py"), name
 
 
@@ -117,6 +120,37 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                                              "--task", "glitch"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(args)
+    # the efficiency test, real events and the bulk scorer
+    from gwkit_torch.cli import calculate_efficiencies, preprocess, real_events, train_efficiency
+    from gwkit_torch.data.datasets import PartitionedDataset
+    from gwkit_torch.search.bulk import score_files
+    from gwkit_torch.search.realevents import score_event_segments
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PartitionedDataset(rows[:, 0], rows[:, 0], (5.0, 5.0), (0, 2), (0, 2), (2, 2))
+
+    class MelTask:  # a task on the default device
+        device = None
+        forward = staticmethod(lambda x: x[:, :1, 0])
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        score_event_segments(MelTask(), {"GW150914": np.zeros((2, 4096), np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        score_files(MelTask(), ["in.hdf"], str(tmp_path / "scores.hdf"))
+    for cli, args in ((train_efficiency, ["-d", "in.hdf", "-o", str(tmp_path / "eff")]),
+                      (calculate_efficiencies, ["-d", "in.hdf", "--checkpoint-dir", str(tmp_path),
+                                                "-o", str(tmp_path / "sweep")]),
+                      (real_events, ["-d", "in.hdf", "--checkpoint", "best.npz", "-o", str(tmp_path / "ev.hdf")]),
+                      (preprocess, ["resample", "in.hdf", str(tmp_path / "out.hdf")])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(args)
+    # host code: the stream evaluation and the windowing need no card
+    from gwkit_torch.cli import evaluate_stream
+
+    with pytest.raises(SystemExit, match="--data-dir is required"):
+        evaluate_stream.main(["--injection-file", "inj.hdf"])
+    with pytest.raises(FileNotFoundError):
+        preprocess.main(["events", str(tmp_path / "missing.hdf"), str(tmp_path / "w.hdf")])
     assert resolve_device("cpu") == torch.device("cpu")
 
 
