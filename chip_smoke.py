@@ -107,9 +107,25 @@ Phases, each printing one JSON line:
              one pre-whitened: window counts, 4 A, 8 B, 4 C a batch,
              scores in [0, 1], the first batch's logits under
              BF16_VS_PLAIN; samples/s, windows/s, the phase's wall time;
+  8 parallel the host-IO library built (g++) and bit-exact: ArrayPrefetch
+             and ChunkLoader on a raw f64 file of 2 x 4096 s at 2048 Hz
+             (134 MB, written with numpy) against np.fromfile, MB/s for
+             both; a one-rank NCCL process group on 127.0.0.1; phase 4's
+             bf16 search (the capstone task loaded anew) with
+             make_mesh(1): scores bit-identical to phase 4's, the same
+             launch counts, one all_gather a batch; 8 steps of phase 5's
+             recipe with Trainer(mesh=make_mesh(1)) against the unmeshed
+             trainer from the same trainables and batches (cuDNN
+             deterministic for both): losses equal, the same launches a
+             step, one NCCL all_reduce a step; then 40 step pairs in turns
+             (medians and the paired difference), the mesh step's
+             _data_mean, all_reduce and flatten alone, and a 3-step profile
+             of each trainer; the trigger shards through gather_trigger_lists and a
+             shard_dir; make_mesh(n_model=2) refused in a world of one;
   kernels    one line per the kernel table (times, bound, launches, by
              path: search, search_stream, search_int8, train, mel,
-             mel_train, efficiency_train, efficiency, real_events); kernel
+             mel_train, efficiency_train, efficiency, real_events,
+             search_mesh, train_mesh); kernel
              E's times, bound and int_mm times are the sums of its four
              launches a layer, kernel B's of its two;
 then the card's name and power limit, and the result line last.
@@ -1025,6 +1041,8 @@ def _kernel_group(name):
                 "int8_gemm_kernel"):
         if key in low:
             return key
+    if "nccl" in low:
+        return "nccl (collectives)"
     if "fft" in low:
         return "fft (whitening, Q-scan, resampling, STFT)"
     if any(k in low for k in ("conv", "cudnn", "implicit", "fprop", "dgrad", "wgrad")):
@@ -1066,18 +1084,25 @@ def profiled(phase, fn, **extra):
     return groups
 
 
-def search_phase(checks, smi):
+def _capstone_search_task():
+    """The capstone model as the search CLI loads it: device=None, the card,
+    bf16, the kernel chain."""
     from gwkit_torch.cli.inference import load_task_from_components
+
+    files = (f"{CAPSTONE}/run/best_lora_weights", f"{CAPSTONE}/run/best_dense_layers.npz",
+             f"{CAPSTONE}/run/best_adapter.npz")
+    return load_task_from_components(*files, pretrained_encoder=f"{CAPSTONE}/encoder_pretrained.npz",
+                                     target_shape=(80, 512))
+
+
+def search_phase(checks, smi):
     from gwkit_torch.search.cluster import get_clusters
     from gwkit_torch.search.engine import score_segments
     from gwkit_torch.search.slicer import DeviceSlicer, Segment, SlicerConfig
     from gwkit_torch.train.tasks import build_mlgwsc
 
-    files = (f"{CAPSTONE}/run/best_lora_weights", f"{CAPSTONE}/run/best_dense_layers.npz",
-             f"{CAPSTONE}/run/best_adapter.npz")
-    kw = dict(pretrained_encoder=f"{CAPSTONE}/encoder_pretrained.npz", target_shape=(80, 512))
     t0 = time.time()
-    task = load_task_from_components(*files, **kw)  # device=None: the card, bf16, kernels
+    task = _capstone_search_task()
     load_s = time.time() - t0
     enc = task.cfg.encoder
     assert enc.fused_block and enc.compute_dtype == torch.bfloat16 and enc.gelu_approx
@@ -1146,7 +1171,7 @@ def search_phase(checks, smi):
     if not ok_bf16:
         checks.failed.append("bf16 search scores")
     return dict(launches=launches, threshold=threshold, bf16_scores=bf16_scores, span=span,
-                trigger_times=_trigger_times(res.triggers), task=task,
+                trigger_times=_trigger_times(res.triggers), task=task, all_vals=res.all_vals, segment=seg, cfg=cfg,
                 clusters=np.vstack([times, stats, np.full(len(times), 0.2)]))
 
 
@@ -2191,6 +2216,244 @@ def efficiency_phase(checks, smi):
     return eff_train, eff, real
 
 
+HOSTIO_SECONDS, HOSTIO_RATE = 4096, 2048  # the raw file: 2 x 4096 s of f64 at 2048 Hz, 134 MB
+MESH_TRAIN_STEPS = 8
+MESH_TIMED_PAIRS, MESH_PIECE_REPS = 40, 15  # phase 8's step pairs in turns; reps of each piece
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _hostio_checks(checks, smi):
+    """The C++ reader built by g++ and bit-exact on a raw f64 file."""
+    from gwkit_torch.native import hostio
+
+    built = hostio.available()
+    emit("hostio_build", library=str(hostio.library_path()), built=built, ok=built)
+    if not built:
+        checks.failed.append("hostio build")
+        return
+    n = HOSTIO_SECONDS * HOSTIO_RATE
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "strain.f64")
+        np.random.default_rng(0).standard_normal((2, n)).tofile(path)
+        size = os.path.getsize(path)
+        want = np.fromfile(path).astype(np.float32).reshape(2, n)
+        t0 = time.perf_counter()
+        got = hostio.ArrayPrefetch(path, 0, (2, n), True).wait()
+        prefetch_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loader = hostio.ChunkLoader(path, 0, 2 * n, on_disk_f64=True)
+        chunked = np.concatenate(list(loader)).reshape(2, n)
+        loader.close()
+        loader_s = time.perf_counter() - t0
+    ok = np.array_equal(got, want) and np.array_equal(chunked, want)
+    emit("hostio", card=smi, file_mb=size / 1e6, prefetch_mb_per_s=size / 1e6 / prefetch_s,
+         chunk_loader_mb_per_s=size / 1e6 / loader_s, prefetch_s=prefetch_s, chunk_loader_s=loader_s,
+         note="the file was just written, so it is read from the page cache", bit_exact=ok, ok=ok)
+    if not ok:
+        checks.failed.append("hostio readers")
+
+
+def _mesh_search(checks, smi, bf16_search, mesh):
+    """Phase 4's search with the mesh: scores bit-identical, the same
+    launches, one all_gather a batch. A warm mesh pass first (NCCL starts
+    its communicator at the first collective), then timed passes in turns
+    (unmeshed, mesh, mesh, unmeshed) and a profiled mesh pass."""
+    from gwkit_torch.search.engine import score_segments
+
+    task, seg, cfg = _capstone_search_task(), bf16_search["segment"], bf16_search["cfg"]
+    dev = torch.device("cuda")
+    run = lambda m: score_segments(task.score, [seg], cfg, trigger_threshold=bf16_search["threshold"],
+                                   device=dev, mesh=m)
+    run(mesh)
+    rates = {"unmeshed": [], "mesh": []}
+    identical, launches, gathers = [], [], []
+    for name in ("unmeshed", "mesh", "mesh", "unmeshed"):
+        m = mesh if name == "mesh" else None
+        before = mesh.calls["all_gather/data"]
+        _cuda.reset_counts()
+        res = run(m)
+        launches.append((dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)))
+        gathers.append(mesh.calls["all_gather/data"] - before)
+        identical.append(np.array_equal(res.all_vals, bf16_search["all_vals"]))
+        rates[name].append(res.throughput_x_realtime)
+    batches = -(-res.n_windows // cfg.batch_size)
+    mesh_launches = launches[1][0]
+    ok = all(identical) and all(lv == (bf16_search["launches"], {}) for lv in launches) and \
+        gathers == [0, batches, batches, 0]
+    emit("search_mesh", card=smi, mesh=list(mesh.shape), windows=res.n_windows, batches=batches,
+         scores_bit_identical_to_phase4=identical, launches=mesh_launches, phase4_launches=bf16_search["launches"],
+         plain_calls=launches[1][1], nccl_all_gathers=gathers, strain_seconds_per_second=rates,
+         order="unmeshed, mesh, mesh, unmeshed after a warm mesh pass", ok=ok)
+    if not ok:
+        checks.failed.append("search_mesh")
+    profiled("search_mesh_profile", lambda: run(mesh), batches=batches)
+    return res.triggers, mesh_launches
+
+
+def _host_ms(fn, reps, sync=True):
+    """Median host ms of ``fn`` over ``reps`` calls after 3 warm ones, the
+    card synchronized before each call and, with ``sync``, after it."""
+    out = []
+    for i in range(3 + reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if sync:
+            torch.cuda.synchronize()
+        if i >= 3:
+            out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _mesh_train(checks, smi, mesh):
+    """Phase 5's recipe, MESH_TRAIN_STEPS steps of an unmeshed trainer and
+    of one with the mesh, in turns, from the same trainables and batches:
+    losses equal, the same kernel launches, one NCCL all_reduce a step.
+    cuDNN is held to its deterministic algorithms (the Q-adapter's weight
+    gradients), so equal means bit for bit. Then the step times:
+    MESH_TIMED_PAIRS more pairs in turns (the first of a pair swapped each
+    pair) and their paired differences; the mesh step's own pieces on its
+    gradients (``_data_mean``: flatten, all_reduce, split back; the
+    all_reduce alone; the flatten alone); and a profiled window of 3 steps
+    of each trainer, both under deterministic cuDNN."""
+    import torch.distributed as dist
+
+    from gwkit_torch.cli.inference import _load_gwkit_encoder
+    from gwkit_torch.data.datasets import InjectionDataset
+    from gwkit_torch.io import from_gwkit_numpy
+    from gwkit_torch.models.adapters import AdapterConfig
+    from gwkit_torch.models.qadapter import QAdapterConfig
+    from gwkit_torch.models.whisper import config_for
+    from gwkit_torch.train.tasks import build_mlgwsc
+    from gwkit_torch.train.trainer import TrainConfig, Trainer
+
+    dev = torch.device("cuda")
+    frames, batch = 512, 64
+    enc_cfg = config_for("tiny", compute_dtype=torch.bfloat16, fused_block=True, gelu_approx=True,
+                         max_positions=frames // 2)
+    encoder = from_gwkit_numpy(encoder=_load_gwkit_encoder(f"{CAPSTONE}/encoder_pretrained.npz", "tiny",
+                                                           enc_cfg))["encoder"]
+    qcfg = QAdapterConfig(median_stride=8, target_shape=(80, frames))
+    acfg = AdapterConfig(r=8, alpha=32, use_dora=True, targets="qkvo")
+    rng = np.random.default_rng(0)
+    train = InjectionDataset(rng.normal(size=(1024, 2, 2048)).astype(np.float32), _chirps(512, rng), (7.0, 20.0),
+                             dev)
+    steps = list(train.batches(torch.Generator().manual_seed(9), batch))[:MESH_TRAIN_STEPS]
+    cfg = TrainConfig(learning_rate=3e-4, clip_norm=100.0, epochs=1, batch_size=batch, optimizer="adam", seed=0)
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for name, m in (("unmeshed", None), ("mesh", mesh)):
+            task = build_mlgwsc(enc_cfg, qcfg, {"encoder": encoder}, usr=False, device=dev, acfg=acfg, seed=0)
+            runs[name] = dict(trainer=Trainer(task.loss_fn, task.trainable, task.frozen, cfg, mesh=m), losses=[],
+                              launches={}, plain={}, calls={})
+        for i, b in enumerate(steps):  # the two trainers step in turns, the first of a pair swapped each step
+            for name in (("unmeshed", "mesh") if i % 2 == 0 else ("mesh", "unmeshed")):
+                r = runs[name]
+                calls = dict(mesh.calls)
+                _cuda.reset_counts()
+                r["losses"].append(r["trainer"].train_step(b)[0])
+                for key, src in (("launches", _cuda.LAUNCHES), ("plain", _cuda.PLAIN_CALLS)):
+                    for k, v in src.items():
+                        r[key][k] = r[key].get(k, 0) + v
+                for k, v in mesh.calls.items():
+                    if v - calls.get(k, 0):
+                        r["calls"][k] = r["calls"].get(k, 0) + v - calls.get(k, 0)
+        ms = {"unmeshed": [], "mesh": []}
+        for i in range(MESH_TIMED_PAIRS):  # the checked steps above warmed both trainers
+            b = steps[i % len(steps)]
+            for name in (("unmeshed", "mesh") if i % 2 == 0 else ("mesh", "unmeshed")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[name]["trainer"].train_step(b)
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+        tm = runs["mesh"]["trainer"]
+        loss, _, grads, _ = tm._gradients(steps[0])
+        tensors = [loss, *grads]
+        flat = torch.cat([t.reshape(-1).float() for t in tensors])
+        pieces = {"data_mean_ms": _host_ms(lambda: tm._data_mean(tensors), MESH_PIECE_REPS),
+                  "all_reduce_ms": _host_ms(lambda: dist.all_reduce(flat), MESH_PIECE_REPS),
+                  "all_reduce_host_ms_no_sync": _host_ms(lambda: dist.all_reduce(flat), MESH_PIECE_REPS, sync=False),
+                  "flatten_ms": _host_ms(lambda: torch.cat([t.reshape(-1).float() for t in tensors]),
+                                         MESH_PIECE_REPS)}
+        for phase, name in (("train_unmeshed_deterministic_profile", "unmeshed"), ("train_mesh_profile", "mesh")):
+            trainer = runs[name]["trainer"]
+            profiled(phase, lambda: [trainer.train_step(b) for b in steps[:3]], steps=3, cudnn_deterministic=True)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    u, m = runs["unmeshed"], runs["mesh"]
+    for r in (u, m):
+        r["losses"] = torch.stack(r["losses"]).float().cpu().numpy()
+        del r["trainer"]
+    per_step = {k: v / len(steps) for k, v in m["launches"].items()}
+    equal = np.array_equal(u["losses"], m["losses"])
+    ok = equal and u["launches"] == m["launches"] and not any(m["plain"].values()) and not u["calls"] and \
+        m["calls"] == {"all_reduce/data": len(steps)} and bool(np.isfinite(m["losses"]).all())
+    diffs = [a - b for a, b in zip(ms["mesh"], ms["unmeshed"])]
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    emit("train_mesh", card=smi, mesh=list(mesh.shape), steps=len(steps), losses=m["losses"].tolist(),
+         unmeshed_losses=u["losses"].tolist(), losses_equal=equal,
+         max_abs_diff=float(np.abs(u["losses"] - m["losses"]).max()), launches=m["launches"],
+         unmeshed_launches=u["launches"], launches_per_step=per_step, plain_calls=m["plain"],
+         nccl_calls=m["calls"], nccl_calls_per_step={k: v / len(steps) for k, v in m["calls"].items()},
+         trainable_leaves=len(grads), trainable_elements=int(sum(g.numel() for g in grads)),
+         timed_pairs=MESH_TIMED_PAIRS, step_ms_median=med, step_ms_range={k: [min(v), max(v)] for k, v in ms.items()},
+         paired_diff_ms_median=statistics.median(diffs), mesh_over_unmeshed=med["mesh"] / med["unmeshed"],
+         step_ms=ms, **pieces, order="after the checked steps, pairs in turns, the first of a pair swapped each pair",
+         ok=ok)
+    if not ok:
+        checks.failed.append("train_mesh")
+    return m["launches"]
+
+
+def parallel_phase(checks, smi, bf16_search):
+    """Phase 8: the host-IO reader, then a one-rank NCCL world: the mesh
+    search and the mesh trainer against their unmeshed runs, the trigger
+    shards, and make_mesh's refusal. Returns the two mesh paths' launches."""
+    import torch.distributed as dist
+
+    from gwkit_torch.parallel.distributed import (gather_trigger_lists, initialize, merge_trigger_shards,
+                                                  process_count, write_trigger_shard)
+    from gwkit_torch.parallel.mesh import make_mesh
+
+    t_phase = time.time()
+    _hostio_checks(checks, smi)
+    initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        mesh = make_mesh(1)
+        assert dist.get_backend() == "nccl" and mesh.shape == (1, 1) and process_count() == 1
+        triggers, search_mesh = _mesh_search(checks, smi, bf16_search, mesh)
+        train_mesh = _mesh_train(checks, smi, mesh)
+        with tempfile.TemporaryDirectory() as shard_dir:
+            gathered = gather_trigger_lists(triggers, shard_dir)
+            write_trigger_shard(triggers, shard_dir, 0)
+            merged = merge_trigger_shards(shard_dir, 1)
+        want = {k: np.asarray(v, np.float64).reshape(-1, 2).tolist() for k, v in sorted(triggers.items())}
+        try:
+            make_mesh(n_model=2)
+            refused = False
+        except ValueError:
+            refused = True
+        ok = gathered is triggers and merged == want and refused
+        emit("shards", triggers=sum(len(v) for v in triggers.values()), gather_identity=gathered is triggers,
+             round_trip_equal=merged == want, make_mesh_2_refused=refused, ok=ok)
+        if not ok:
+            checks.failed.append("trigger shards")
+    finally:
+        dist.destroy_process_group()
+    emit("parallel_phase", wall_s=time.time() - t_phase)
+    return search_mesh, train_mesh
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2215,6 +2478,7 @@ def main():
     train = train_phase(checks, smi)
     mel, mel_train = mel_phase(checks, smi)
     eff_train, eff, real = efficiency_phase(checks, smi)
+    search_mesh, train_mesh = parallel_phase(checks, smi, bf16_search)
     kernels = []
     for name in KERNELS:
         r = records[name]
@@ -2233,7 +2497,9 @@ def main():
                                              "train": train.get(name, 0), "mel": mel.get(name, 0),
                                              "mel_train": mel_train.get(name, 0),
                                              "efficiency_train": eff_train.get(name, 0),
-                                             "efficiency": eff.get(name, 0), "real_events": real.get(name, 0)},
+                                             "efficiency": eff.get(name, 0), "real_events": real.get(name, 0),
+                                             "search_mesh": search_mesh.get(name, 0),
+                                             "train_mesh": train_mesh.get(name, 0)},
                         **extra})
     if checks.failed:
         print("chip_smoke: FAILED " + ", ".join(checks.failed), file=sys.stderr)

@@ -10,15 +10,41 @@ import os
 import sys
 from typing import Dict, Optional
 
-# dest -> section of the dumped config tree (anything else lands in "run")
+# gwkit's dest -> section registry (``gwkit/utils/config.py``), so a
+# config.json of either package loads in the other; any dest not listed
+# lands in "run".
 SECTIONS: Dict[str, str] = {
-    "inputfile": "data",
-    "encoder": "model", "hf_checkpoint": "model", "target_shape": "model",
-    "pretrained_encoder": "model", "lora_weights": "model", "dense_weights": "model",
-    "adapter_weights": "model",
-    "batch_size": "search", "step_size": "search", "trigger_threshold": "search",
-    "white": "search", "cluster_threshold": "search", "softmax": "search", "stream": "search",
-    "qscan_stream": "search",
+    # data
+    "dataset": "data", "dataset_dir": "data", "data_dir": "data",
+    "input": "data", "inputfile": "data", "input_sample_rate": "data",
+    "sample_rate": "data", "n_detectors": "data", "snr": "data",
+    "snrs": "data", "n_frames": "data", "duration": "data",
+    "real_noise_path": "data", "n_train": "data", "n_valid": "data",
+    "waveform_fraction": "data", "approximant": "data", "chunk_size": "data",
+    "window": "data", "step": "data", "window_duration": "data",
+    "wave_duration": "data",
+    # model
+    "encoder": "model", "method": "model", "lora_rank": "model",
+    "lora_alpha": "model", "target_modules": "model", "hf_checkpoint": "model",
+    "spectrogram_shape": "model", "target_shape": "model", "q_range": "model",
+    "kernel_length": "model", "num_classes": "model", "head": "model",
+    "full_finetune": "model",
+    # train
+    "learning_rate": "train", "epochs": "train", "batch_size": "train",
+    "clip_norm": "train", "early_stop_patience": "train", "optimizer": "train",
+    "resume": "train", "pretrain_steps": "train", "pretrain_lr": "train",
+    "pretrain_temp": "train", "noise_only_prob": "train", "scheduler": "train",
+    "run_index": "train", "valid_fraction": "train",
+    # search
+    "step_size": "search", "trigger_threshold": "search", "white": "search",
+    "cluster_threshold": "search", "low_frequency_cutoff": "search",
+    "whitened_file": "search", "raw_triggers_file": "search",
+    "softmax": "search", "stream": "search", "shard_dir": "search",
+    # eval
+    "injection_file": "eval", "foreground_events": "eval",
+    "background_events": "eval", "foreground_files": "eval",
+    "chirp_distance": "eval", "faps": "eval", "padding_start": "eval",
+    "padding_end": "eval",
 }
 _RUN_ONLY = {"config", "help"}
 
@@ -42,8 +68,19 @@ def configure_logging(verbose: bool = False, debug: bool = False) -> None:
                         datefmt="%d-%m-%Y %H:%M:%S", handlers=[logging.StreamHandler(sys.stdout)])
 
 
+def _all_actions(parser: argparse.ArgumentParser):
+    """Every action of the parser and of its subparsers, recursively."""
+    for a in parser._actions:
+        yield a
+        if isinstance(a, argparse._SubParsersAction):
+            for sub in a.choices.values():
+                yield from _all_actions(sub)
+
+
 def _explicit_dests(parser: argparse.ArgumentParser, argv) -> set:
-    saved = [(a, a.default) for a in parser._actions]
+    """The dests passed on the command line: a re-parse with every default,
+    the subcommands' included, suppressed."""
+    saved = [(a, a.default) for a in _all_actions(parser)]
     try:
         for a, _ in saved:
             a.default = argparse.SUPPRESS
@@ -54,6 +91,18 @@ def _explicit_dests(parser: argparse.ArgumentParser, argv) -> set:
             a.default = d
 
 
+def _flatten(tree: dict) -> dict:
+    """A config tree grouped by section, flat, or mixed -> flat."""
+    flat = {}
+    section_names = set(SECTIONS.values()) | {"run"}
+    for key, val in tree.items():
+        if key in section_names and isinstance(val, dict):
+            flat.update(val)
+        else:
+            flat[key] = val
+    return flat
+
+
 def parse_with_config(parser: argparse.ArgumentParser, argv=None) -> argparse.Namespace:
     """parse_args with ``--config`` support (the file may be flat or grouped
     by section; unknown keys are rejected)."""
@@ -61,13 +110,7 @@ def parse_with_config(parser: argparse.ArgumentParser, argv=None) -> argparse.Na
     if args.config:
         explicit = _explicit_dests(parser, argv)
         with open(args.config) as f:
-            tree = json.load(f)
-        flat = {}
-        for key, val in tree.items():
-            if isinstance(val, dict) and key in set(SECTIONS.values()) | {"run"}:
-                flat.update(val)
-            else:
-                flat[key] = val
+            flat = _flatten(json.load(f))
         unknown = sorted(k for k in flat if k not in vars(args))
         if unknown:
             raise SystemExit(f"--config {args.config}: keys not accepted by this entry point: {unknown}")
@@ -77,16 +120,21 @@ def parse_with_config(parser: argparse.ArgumentParser, argv=None) -> argparse.Na
     return args
 
 
+def config_tree(args: argparse.Namespace) -> dict:
+    """The resolved namespace grouped into gwkit's section tree."""
+    tree: Dict[str, dict] = {}
+    for dest, val in sorted(vars(args).items()):
+        if dest not in _RUN_ONLY:
+            tree.setdefault(SECTIONS.get(dest, "run"), {})[dest] = val
+    return tree
+
+
 def dump_config(args: argparse.Namespace, output: Optional[str]) -> Optional[str]:
     """Write the resolved config beside the run's outputs: for an output
     file ``<file>.config.json`` next to it, for an output directory
     ``config.json`` inside it (as gwkit's ``dump_config``)."""
     if not output:
         return None
-    tree: Dict[str, dict] = {}
-    for dest, val in sorted(vars(args).items()):
-        if dest not in _RUN_ONLY:
-            tree.setdefault(SECTIONS.get(dest, "run"), {})[dest] = val
     if os.path.splitext(output)[1]:
         outdir, name = os.path.dirname(os.path.abspath(output)), os.path.basename(output) + ".config.json"
     else:
@@ -94,7 +142,7 @@ def dump_config(args: argparse.Namespace, output: Optional[str]) -> Optional[str
     os.makedirs(outdir, exist_ok=True)
     path = os.path.join(outdir, name)
     with open(path, "w") as f:
-        json.dump(tree, f, indent=2, sort_keys=True, default=str)
+        json.dump(config_tree(args), f, indent=2, sort_keys=True, default=str)
     logging.info("resolved config written to %s", path)
     return path
 
@@ -112,6 +160,28 @@ def add_adapter_args(parser: argparse.ArgumentParser) -> None:
                         help="Path to HF whisper weights (safetensors/torch) for the base encoder.")
     parser.add_argument("--pretrained-encoder", type=str, default=None,
                         help="gwkit encoder pytree (.npz), e.g. the InfoNCE-pretrained encoder.")
+
+
+def add_mesh_arg(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--model-parallel", type=int, default=0,
+                        help="Train over a ('data', 'model') mesh of every rank of the process "
+                             "group with this tensor-parallel degree (0 = one device; 1 = pure "
+                             "data parallel). Several ranks: start the CLI under torchrun.")
+
+
+def build_mesh(args):
+    """The mesh for ``Trainer(mesh=)`` when ``--model-parallel`` is set, else
+    None. Under ``torchrun`` (``WORLD_SIZE`` set) the process group is
+    initialized from its environment first, on the CPU with ``--cpu``."""
+    if not getattr(args, "model_parallel", 0):
+        return None
+    from gwkit_torch.parallel.distributed import initialize
+    from gwkit_torch.parallel.mesh import make_mesh
+
+    device = "cpu" if args.cpu else None
+    if "WORLD_SIZE" in os.environ:
+        initialize(device=device)
+    return make_mesh(n_model=args.model_parallel, device=device)
 
 
 def build_adapter_config(args):

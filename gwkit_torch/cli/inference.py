@@ -11,7 +11,9 @@ hand-written kernels) unless ``--cpu`` is given (f32, erf GELU, plain
 PyTorch), the settings gwkit picks on a TPU and on the CPU. ``--int8`` puts
 the encoder's projections on int8 (kernel E) on the card and, as in gwkit,
 does nothing on the CPU. ``--qscan-stream`` takes the experimental streaming
-Q-scan for long segments.
+Q-scan for long segments. Under ``torchrun`` each process searches a
+round-robin share of the segments, the trigger lists merge through
+``--shard-dir``, and rank 0 writes the output.
 """
 from __future__ import annotations
 
@@ -61,9 +63,13 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--debug-triggers-file", type=str, default=None)
     p.add_argument("--debug-whitened-file", type=str, default=None)
+    p.add_argument("--shard-dir", type=str, default=None,
+                   help="Shared directory for the trigger gather of a search over several "
+                        "processes (started with torchrun; gwkit_torch.parallel.distributed).")
     p.add_argument("--stream", type=int, choices=[0, 1], default=None,
-                   help="Read segments on a reader thread one ahead (1) or all up front "
-                        "(0, the default).")
+                   help="Read segments one ahead while the card scores (1) or all up front (0). "
+                        "Default: 1 when every dataset is contiguous, uncompressed f32/f64 and "
+                        "the C++ reader builds (read ahead in a C++ thread), else 0.")
     p.add_argument("--int8", action="store_true",
                    help="int8 projections in every encoder layer (the card only; a no-op "
                         "with --cpu).")
@@ -165,6 +171,7 @@ def _finite_scores(score_fn):
 
 
 def main(argv=None):
+    from gwkit_torch.parallel.distributed import initialize, process_index
     from gwkit_torch.search.engine import get_triggers, write_search_output
 
     args = parse_args(argv)
@@ -175,6 +182,8 @@ def main(argv=None):
         if path and args.force and os.path.isfile(path):
             os.remove(path)
 
+    if "WORLD_SIZE" in os.environ:  # under torchrun: one process group over its ranks
+        initialize(device="cpu" if args.cpu else None)
     t0 = time.time()
     task = load_task_from_components(
         args.lora_weights, args.dense_weights, args.adapter_weights,
@@ -190,9 +199,12 @@ def main(argv=None):
         task, args.inputfile,
         step_size=args.step_size, trigger_threshold=args.trigger_threshold,
         white=args.white, whitened_file=args.debug_whitened_file,
-        batch_size=args.batch_size, verbose=args.verbose, stream=bool(args.stream),
-        qscan_stream=args.qscan_stream,
+        batch_size=args.batch_size, verbose=args.verbose,
+        stream=None if args.stream is None else bool(args.stream),
+        shard_dir=args.shard_dir, qscan_stream=args.qscan_stream,
     )
+    if process_index() != 0:  # every rank holds the merged triggers; rank 0 writes them
+        return
     print(f"Total slices above threshold {args.trigger_threshold:.3f}: "
           f"{sum(len(v) for v in triggers.values())}")
     write_search_output(args.outputfile, triggers, all_vals,

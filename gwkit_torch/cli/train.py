@@ -10,7 +10,6 @@ DATASET is an HDF5 file (or a directory of them) with ``training`` and
 ``validation`` groups (``waveforms``, ``noises``), as gwkit writes them. On
 the CUDA card the encoder runs in bf16 with tanh GELU and every layer on
 the hand-written kernels; ``--cpu`` runs f32, erf GELU and plain PyTorch.
-gwkit's ``--model-parallel`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -20,14 +19,15 @@ from argparse import ArgumentParser
 
 import numpy as np
 
-from gwkit_torch.cli.common import (add_adapter_args, add_common_args, configure_logging, dump_config, load_task,
-                                    parse_with_config)
+from gwkit_torch.cli.common import (add_adapter_args, add_common_args, add_mesh_arg, build_mesh,
+                                    configure_logging, dump_config, load_task, parse_with_config)
 
 
 def parse_args(argv=None):
     p = ArgumentParser(description="Train the two-detector signal-vs-noise classifier.")
     add_common_args(p)
     add_adapter_args(p)
+    add_mesh_arg(p)
     p.add_argument("-d", "--dataset", type=str, required=True,
                    help="HDF5 dataset file/dir with training/validation groups (InjectionDataset layout).")
     p.add_argument("-o", "--output", type=str, required=True, help="Output directory.")
@@ -48,6 +48,8 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     configure_logging(verbose=args.verbose, debug=args.debug)
+    # first: under torchrun this sets the rank's card before anything is placed on one
+    mesh = build_mesh(args)
     dump_config(args, args.output)
     from gwkit_torch.data.datasets import load_concat_datasets
     from gwkit_torch.device import resolve_device
@@ -55,7 +57,7 @@ def main(argv=None):
     from gwkit_torch.train.tasks import build_signal_vs_noise
     from gwkit_torch.train.trainer import TrainConfig, Trainer
 
-    device = resolve_device("cpu" if args.cpu else None)
+    device = mesh.device if mesh is not None else resolve_device("cpu" if args.cpu else None)
     paths = sorted(glob.glob(os.path.join(args.dataset, "*"))) if os.path.isdir(args.dataset) else [args.dataset]
     train_ds, valid_ds = load_concat_datasets(paths, snr_range=tuple(args.snr), device=device)
     task = load_task(args, build_signal_vs_noise, device, n_detectors=args.detectors)
@@ -64,7 +66,7 @@ def main(argv=None):
         TrainConfig(learning_rate=args.learning_rate, epochs=args.epochs, batch_size=args.batch_size,
                     early_stop_patience=args.early_stop_patience, optimizer="adamw", clip_norm=0.0,
                     seed=args.seed),
-        export_components=task.export_components)
+        export_components=task.export_components, mesh=mesh)
 
     def eval_metrics(epoch, trainable, val_aux):
         scores = np.concatenate([a["scores"] for a in val_aux])

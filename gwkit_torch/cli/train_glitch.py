@@ -21,14 +21,15 @@ from argparse import ArgumentParser
 
 import numpy as np
 
-from gwkit_torch.cli.common import (add_adapter_args, add_common_args, configure_logging, dump_config, load_task,
-                                    parse_with_config)
+from gwkit_torch.cli.common import (add_adapter_args, add_common_args, add_mesh_arg, build_mesh,
+                                    configure_logging, dump_config, load_task, parse_with_config)
 
 
 def parse_args(argv=None):
     p = ArgumentParser(description="Train the multi-class glitch classifier.")
     add_common_args(p)
     add_adapter_args(p)
+    add_mesh_arg(p)
     p.add_argument("-d", "--dataset", type=str, required=True,
                    help="HDF5 with 'strain' [N,T] and integer 'labels' [N].")
     p.add_argument("-o", "--output", type=str, required=True)
@@ -49,6 +50,8 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     configure_logging(verbose=args.verbose, debug=args.debug)
+    # first: under torchrun this sets the rank's card before anything is placed on one
+    mesh = build_mesh(args)
     dump_config(args, args.output)
     import h5py
 
@@ -58,7 +61,7 @@ def main(argv=None):
     from gwkit_torch.train.tasks import build_glitch
     from gwkit_torch.train.trainer import TrainConfig, Trainer
 
-    device = resolve_device("cpu" if args.cpu else None)
+    device = mesh.device if mesh is not None else resolve_device("cpu" if args.cpu else None)
     with h5py.File(args.dataset, "r") as f:
         strain, labels = f["strain"][()], f["labels"][()]
     n_valid = int(len(labels) * args.valid_fraction)
@@ -71,7 +74,7 @@ def main(argv=None):
         TrainConfig(learning_rate=args.learning_rate, epochs=args.epochs, batch_size=args.batch_size,
                     early_stop_patience=args.early_stop_patience, optimizer="adamw", clip_norm=0.0,
                     seed=args.seed),
-        export_components=task.export_components)
+        export_components=task.export_components, mesh=mesh)
 
     best_f1 = [-1.0]
     plots = importlib.util.find_spec("matplotlib") is not None

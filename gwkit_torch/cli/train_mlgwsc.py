@@ -10,7 +10,7 @@ DATASET_DIR holds HDF5 files with ``training`` and ``validation`` groups
 (``waveforms``, ``noises``), as gwkit writes them. On the CUDA card the
 encoder runs in bf16 with tanh GELU and every layer on the hand-written
 kernels (forward chain, attention backward); ``--cpu`` runs f32, erf GELU
-and plain PyTorch. gwkit's ``--model-parallel`` is not ported yet.
+and plain PyTorch.
 """
 from __future__ import annotations
 
@@ -18,8 +18,8 @@ import glob
 import os
 from argparse import ArgumentParser
 
-from gwkit_torch.cli.common import (add_adapter_args, add_common_args, build_adapter_config,
-                                    build_encoder_config, configure_logging, dump_config,
+from gwkit_torch.cli.common import (add_adapter_args, add_common_args, add_mesh_arg, build_adapter_config,
+                                    build_encoder_config, build_mesh, configure_logging, dump_config,
                                     load_encoder_params, parse_with_config)
 
 
@@ -27,6 +27,7 @@ def parse_args(argv=None):
     p = ArgumentParser(description="GW-Whisper (Q-Scan) training")
     add_common_args(p)
     add_adapter_args(p)
+    add_mesh_arg(p)
     p.add_argument("-d", "--dataset-dir", type=str, required=True)
     p.add_argument("-o", "--output-training", type=str, required=True)
     p.add_argument("--n-detectors", type=int, default=2)
@@ -35,7 +36,6 @@ def parse_args(argv=None):
     p.add_argument("--target-shape", type=int, nargs=2, default=[80, 3000])
     p.add_argument("--q-range", type=float, nargs=2, default=[4.0, 128.0])
     p.add_argument("--kernel-length", type=float, default=1.0)
-    p.add_argument("--median-stride", type=int, default=1)
     p.add_argument("--snr", type=float, nargs=2, default=(5.0, 15.0))
     p.add_argument("--learning-rate", type=float, default=5e-5)
     p.add_argument("--epochs", type=int, default=50)
@@ -54,6 +54,8 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     configure_logging(verbose=args.verbose, debug=args.debug)
+    # first: under torchrun this sets the rank's card before anything is placed on one
+    mesh = build_mesh(args)
     dump_config(args, args.output_training)
     from gwkit_torch.data.datasets import load_concat_datasets
     from gwkit_torch.device import resolve_device
@@ -62,13 +64,12 @@ def main(argv=None):
     from gwkit_torch.train.tasks import build_mlgwsc
     from gwkit_torch.train.trainer import TrainConfig, Trainer
 
-    device = resolve_device("cpu" if args.cpu else None)
+    device = mesh.device if mesh is not None else resolve_device("cpu" if args.cpu else None)
     paths = sorted(p for p in glob.glob(os.path.join(args.dataset_dir, "*")) if os.path.isfile(p))
     train_ds, valid_ds = load_concat_datasets(paths, snr_range=tuple(args.snr), device=device)
     qcfg = QAdapterConfig(kernel_length=args.kernel_length, sample_rate=args.sample_rate,
                           q_range=tuple(args.q_range), spectrogram_shape=tuple(args.spectrogram_shape),
-                          target_shape=tuple(args.target_shape), n_detectors=args.n_detectors,
-                          median_stride=args.median_stride)
+                          target_shape=tuple(args.target_shape), n_detectors=args.n_detectors)
     enc_cfg = build_encoder_config(args, args.target_shape[1])
     encoder = load_encoder_params(args, enc_cfg)
     task = build_mlgwsc(enc_cfg, qcfg, {"encoder": encoder} if encoder is not None else None,
@@ -86,7 +87,7 @@ def main(argv=None):
         TrainConfig(learning_rate=args.learning_rate, clip_norm=args.clip_norm, epochs=args.epochs,
                     batch_size=args.batch_size, early_stop_patience=args.early_stop_patience,
                     optimizer="adam", seed=args.seed),
-        export_components=task.export_components)
+        export_components=task.export_components, mesh=mesh)
     trainer.fit(lambda g: train_ds.batches(g, args.batch_size),
                 lambda g: valid_ds.batches(g, max(32, args.batch_size), shuffle=False, drop_remainder=False),
                 outdir=args.output_training, resume=args.resume, force=args.force)

@@ -16,6 +16,11 @@ math, gwkit's default path (where ``quant_int8`` does nothing, as in gwkit),
 whose attention runs on kernel A at T >= 1024 with ``cfg.use_flash_attention``
 and whose MLP runs on kernel C with ``cfg.fused_mlp``, as gwkit's switches.
 
+Under a model mesh (``gwkit_torch.parallel.mesh``; layers holding this
+rank's slices, run inside ``with active(mesh)``) the unfused layer is
+Megatron tensor parallelism with explicit collectives, and the kernel chain
+takes the layer's weights gathered at its boundary.
+
 Two entry points: :class:`WhisperEncoder` prepares the weights once and
 runs without gradients (the search); :func:`encoder_apply` takes the
 parameters and adapters on every call and is differentiable (training),
@@ -33,10 +38,12 @@ import torch.nn.functional as F
 from gwkit_torch.device import no_tf32_convs
 from gwkit_torch.io import Leaf, tree_to
 from gwkit_torch.ops.attention import flash_attention
-from gwkit_torch.ops.dora import dora_linear
+from gwkit_torch.ops.dora import dora_linear, dora_norms_sq
 from gwkit_torch.ops.fused_block import (FusedLayer, fold_layer, fused_encoder_block,
                                          fused_layer_apply)
 from gwkit_torch.ops.fused_mlp import _gelu, fused_mlp_block
+from gwkit_torch.parallel.mesh import (Mesh, copy_to_model, current_mesh, gather_layer, gather_model,
+                                       model_sum_, reduce_from_model)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,23 +151,107 @@ def _proj(x: torch.Tensor, p: dict, adapter: Optional[dict] = None) -> torch.Ten
 
 def _attention(x: torch.Tensor, p: dict, cfg: WhisperConfig, adapters: Optional[dict]) -> torch.Tensor:
     B, T, D = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
     ad = adapters or {}
-    q = (_proj(x, p["q"], ad.get("q")) * hd ** -0.5).reshape(B, T, H, hd)
-    k = _proj(x, p["k"], ad.get("k")).reshape(B, T, H, hd)
-    v = _proj(x, p["v"], ad.get("v")).reshape(B, T, H, hd)
+    q = (_proj(x, p["q"], ad.get("q")) * hd ** -0.5).reshape(B, T, -1, hd)
+    k = _proj(x, p["k"], ad.get("k")).reshape(B, T, -1, hd)
+    v = _proj(x, p["v"], ad.get("v")).reshape(B, T, -1, hd)
+    return _proj(_attention_core(q, k, v, cfg, x.dtype), p["o"], ad.get("o"))
+
+
+def _attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: WhisperConfig,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """softmax(q k^T) v over (B, T, heads, hd) -> (B, T, heads * hd)."""
+    B, T = q.shape[:2]
     if cfg.use_flash_attention and T >= 1024:  # gwkit's switch point: no T x T scores in memory
-        o = flash_attention(q, k, v).reshape(B, T, D)
-    else:
-        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        o = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, D)
-    return _proj(o, p["o"], ad.get("o"))
+        return flash_attention(q, k, v).reshape(B, T, -1)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, T, -1)
+
+
+def _model_shards(p: dict, cfg: WhisperConfig) -> int:
+    """Into how many slices the layer's heads are split (1: a whole layer)."""
+    return cfg.d_model // p["q"]["w"].shape[-1]
+
+
+def _layer_mesh(p: dict, cfg: WhisperConfig) -> Optional[Mesh]:
+    """The active mesh when ``p`` is a model-sharded layer, else None."""
+    n = _model_shards(p, cfg)
+    if n == 1:
+        return None
+    mesh = current_mesh()
+    if mesh is None or mesh.n_model != n:
+        raise RuntimeError(f"a layer split {n} ways runs inside `with active(mesh)` of a mesh "
+                           f"with {n} model ranks")
+    return mesh
+
+
+def _tp_column(h: torch.Tensor, p: dict, adapter: Optional[dict], mesh: Mesh) -> torch.Tensor:
+    """A projection whose d_out is split over "model" (q, k, v): each rank
+    its columns. ``h`` has passed :func:`copy_to_model`; so do the adapter's
+    replicated ``a`` and ``scaling``, whose gradients sum over the ranks'
+    columns. DoRA's column norms need no collective (d_in is whole)."""
+    if adapter is None:
+        return _proj(h, p)
+    adapter = {**adapter, "a": copy_to_model(adapter["a"], mesh)}
+    if isinstance(adapter.get("scaling"), torch.Tensor):
+        adapter["scaling"] = copy_to_model(adapter["scaling"], mesh)
+    return dora_linear(h, p["w"], p.get("b"), adapter)
+
+
+def _tp_row(h: torch.Tensor, p: dict, adapter: Optional[dict], mesh: Mesh) -> torch.Tensor:
+    """A projection whose d_in is split over "model" (o, fc2): the ranks'
+    partial sums are reduced with one ``all_reduce``, then DoRA's scale (its
+    squared column norms are partial sums too, reduced before the square
+    root; y is linear, so the scale goes after the sum) and the bias, each
+    once."""
+    y = h @ p["w"]
+    if adapter is not None:
+        s = adapter.get("scaling", 1.0)
+        if isinstance(s, torch.Tensor):
+            s = copy_to_model(s, mesh)
+        y = y + s * ((h @ adapter["a"]) @ copy_to_model(adapter["b"], mesh))
+    y = reduce_from_model(y, mesh)
+    if adapter is not None and "m" in adapter:
+        with torch.no_grad():
+            norm_sq = model_sum_(dora_norms_sq(p["w"], adapter["a"], adapter["b"],
+                                               adapter.get("scaling", 1.0)), mesh)
+            norms = torch.sqrt(torch.clamp(norm_sq, min=1e-12))
+        y = y * (adapter["m"].float() / norms).to(y.dtype)
+    return y + p["b"] if "b" in p else y
+
+
+def _tp_block(x: torch.Tensor, p: dict, cfg: WhisperConfig, adapters: Optional[dict],
+              mesh: Mesh) -> torch.Tensor:
+    """gwkit's unfused layer under a model mesh, the layout GSPMD gives it
+    (Megatron): this rank's n_heads / n_model heads and fc1 columns; one
+    all_reduce after o and one after fc2. With ``cfg.fused_mlp`` kernel C
+    takes the gathered fc1/fc2 weights."""
+    B, T, _ = x.shape
+    hd = cfg.head_dim
+    ad = adapters or {}
+    h = copy_to_model(_layer_norm(x, p["attn_ln"]), mesh)
+    q = (_tp_column(h, p["q"], ad.get("q"), mesh) * hd ** -0.5).reshape(B, T, -1, hd)
+    k = _tp_column(h, p["k"], ad.get("k"), mesh).reshape(B, T, -1, hd)
+    v = _tp_column(h, p["v"], ad.get("v"), mesh).reshape(B, T, -1, hd)
+    x = x + _tp_row(_attention_core(q, k, v, cfg, x.dtype), p["o"], ad.get("o"), mesh)
+    if cfg.fused_mlp:
+        g = lambda t, axis: gather_model(t, axis, mesh)
+        return fused_mlp_block(x, p["mlp_ln"]["g"], p["mlp_ln"]["b"], g(p["fc1"]["w"], 1), g(p["fc1"]["b"], 0),
+                               g(p["fc2"]["w"], 0), p["fc2"]["b"], approx=cfg.gelu_approx)
+    h = copy_to_model(_layer_norm(x, p["mlp_ln"]), mesh)
+    h = _gelu(_proj(h, p["fc1"]), cfg.gelu_approx)
+    return x + _tp_row(h, p["fc2"], None, mesh)
 
 
 def _block(x: torch.Tensor, p: dict, cfg: WhisperConfig, adapters: Optional[dict] = None) -> torch.Tensor:
     """gwkit's unfused layer (whisper.py:181-202); ``p`` and ``adapters``
-    already in the compute dtype."""
+    already in the compute dtype. A model-sharded layer runs
+    :func:`_tp_block` on the active mesh."""
+    mesh = _layer_mesh(p, cfg)
+    if mesh is not None:
+        return _tp_block(x, p, cfg, adapters, mesh)
     h = _layer_norm(x, p["attn_ln"])
     x = x + _attention(h, p, cfg, adapters)
     if cfg.fused_mlp:
@@ -169,6 +260,14 @@ def _block(x: torch.Tensor, p: dict, cfg: WhisperConfig, adapters: Optional[dict
     h = _layer_norm(x, p["mlp_ln"])
     h = _gelu(_proj(h, p["fc1"]), cfg.gelu_approx)
     return x + _proj(h, p["fc2"])
+
+
+def _whole_layer(p: dict, adapters: Optional[dict], cfg: WhisperConfig):
+    """A layer's full weights and adapters for the kernel chain, gathered
+    over "model" when the layer is sharded (gwkit's fused kernel under a mesh
+    likewise gathers at its boundary; the batch stays split over "data")."""
+    mesh = _layer_mesh(p, cfg)
+    return (p, adapters) if mesh is None else gather_layer(mesh, p, adapters)
 
 
 def _conv1d(x: torch.Tensor, p: dict, stride: int) -> torch.Tensor:
@@ -203,7 +302,7 @@ class WhisperEncoder:
         self.params = {name: tree_to(params[name], dt) for name in ("conv1", "conv2", "pos", "ln_post")}
         ads = adapters if adapters is not None else [None] * len(params["layers"])
         if cfg.fused_block:
-            self.layers: List = [fold_layer(p, a, cfg.n_heads, dt, quant=cfg.quant_int8)
+            self.layers: List = [fold_layer(*_whole_layer(p, a, cfg), cfg.n_heads, dt, quant=cfg.quant_int8)
                                  for p, a in zip(params["layers"], ads)]
         else:
             self.layers = [(tree_to(p, dt), tree_to(a, dt) if a else None)
@@ -233,6 +332,7 @@ def encoder_apply(cfg: WhisperConfig, params: dict, mel: torch.Tensor,
     def run_layer(x, layer):
         p, a = tree_to(layer[0], dt), (tree_to(layer[1], dt) if layer[1] else None)
         if cfg.fused_block:
+            p, a = _whole_layer(p, a, cfg)
             return fused_encoder_block(x, p, cfg.n_heads, a, approx=cfg.gelu_approx, quant=cfg.quant_int8)
         return _block(x, p, cfg, a)
 

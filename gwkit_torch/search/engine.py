@@ -1,11 +1,17 @@
 """Continuous-search engine: segments -> windows -> scores -> triggers
-(counterpart of ``gwkit/search/engine.py``, single host).
+(counterpart of ``gwkit/search/engine.py``).
 
 Per segment the strain is whitened on the task's device, windows are
 gathered there in batches, and ``score_fn`` (the task's Q-adapter ->
 encoder -> head forward, USR logits) scores each batch. Scores stay on the
 device until the segment is done, so batches queue back to back; windows
 above the threshold become (time, score) triggers.
+
+Several processes (``gwkit_torch.parallel``): a search over a file shards
+its segments across processes at the key level and merges the trigger
+lists through a shared directory (:func:`get_triggers`); with a mesh,
+:func:`score_segments` splits each batch's windows over the "data" ranks
+and gathers the scores back into batch order.
 """
 from __future__ import annotations
 
@@ -18,9 +24,11 @@ import numpy as np
 import torch
 
 from gwkit_torch.device import DeviceLike, resolve_device
+from gwkit_torch.parallel.distributed import gather_trigger_lists, host_key_filter, process_count, process_index
+from gwkit_torch.parallel.mesh import Mesh, gather_rows, local_rows
 from gwkit_torch.search.cluster import get_clusters
-from gwkit_torch.search.slicer import (DeviceSlicer, Segment, SlicerConfig, read_segments,
-                                       stream_segments)
+from gwkit_torch.search.slicer import (DeviceSlicer, Segment, SlicerConfig, native_streamable,
+                                       read_segments, stream_segments)
 
 
 @dataclasses.dataclass
@@ -46,6 +54,7 @@ def score_segments(
     detectors: Optional[List[str]] = None,
     verbose: bool = False,
     device: DeviceLike = None,
+    mesh: Optional[Mesh] = None,
     stream_score_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     stream_plan_args: Optional[tuple] = None,
     stream_norm: str = "median",
@@ -63,8 +72,16 @@ def score_segments(
     ``stream_plan_args`` selects the streaming Q-scan for blocked (long)
     segments (``DeviceSlicer.fused_scores_stream``); short segments keep
     the per-window path, as in gwkit. The two differ near window edges by
-    design."""
+    design.
+
+    ``mesh``: each rank of the "data" axis scores its rows of every batch
+    (the batch size must divide by the data size) and the scores are
+    all-gathered back into batch order, so every rank holds the whole score
+    stream, as gwkit's global array. As in gwkit, the streaming Q-scan is
+    not combined with a mesh."""
     device = resolve_device(device)
+    if mesh is not None:
+        score_fn, stream_score_fn = _data_sharded(score_fn, mesh, slicer_cfg.batch_size), None
     triggers: Dict[str, List[List[float]]] = {}
     all_vals: List[np.ndarray] = []
     n_windows = 0
@@ -97,6 +114,17 @@ def score_segments(
         strain_seconds=strain_seconds,
         wall_seconds=time.time() - t0,
     )
+
+
+def _data_sharded(score_fn, mesh: Mesh, batch_size: int):
+    """``score_fn`` on this data rank's rows of each batch, the scores
+    gathered back over "data" into batch order."""
+    rows = local_rows(mesh, batch_size)
+
+    def score(windows: torch.Tensor) -> torch.Tensor:
+        return gather_rows(score_fn(windows[rows]).contiguous(), mesh)
+
+    return score
 
 
 def _write_whitened(path: str, seg: Segment, slicer: DeviceSlicer, detectors) -> None:
@@ -134,22 +162,41 @@ def get_triggers(
     low_frequency_cutoff: float = 20.0,
     batch_size: int = 128,
     verbose: bool = False,
-    stream: bool = False,
+    stream: Optional[bool] = None,
+    shard_dir: Optional[str] = None,
     qscan_stream: bool = False,
 ) -> Tuple[Dict[str, List[List[float]]], np.ndarray, SearchResult]:
     """The reference get_triggers flow on a search task (usually mlgwsc,
-    USR): read the file's segments (all up front, or with ``stream`` one
-    ahead on a reader thread), score them on ``task.device``.
+    USR), scored on ``task.device``.
+
+    ``stream``: None (the default) chooses by :func:`native_streamable`:
+    when every dataset is contiguous uncompressed f64/f32 and the host-IO
+    library builds, segments stream with the C++ whole-array prefetcher
+    (segment i+1 read by a C++ thread while segment i is scored), else all
+    are read up front. ``True`` forces streaming (a Python reader thread for
+    other files), ``False`` eager reads. Outputs are the same in every mode.
+
+    Several processes (``process_count() > 1``): each scores a round-robin
+    share of the segments, chosen before any dataset is opened, and the
+    per-segment trigger lists are merged through ``shard_dir`` (a shared
+    filesystem path); ``all_vals`` stays this process's.
     ``qscan_stream`` takes the streaming Q-scan for long segments, from
     the task's Q-adapter geometry."""
     stream_kwargs = stream_search_kwargs(task) if qscan_stream else {}
     device = resolve_device(task.device)
-    segments = stream_segments(inputfile) if stream else read_segments(inputfile)
+    if stream is None:
+        stream = native_streamable(inputfile)
+    n_proc = process_count()
+    key_filter = host_key_filter(process_index(), n_proc) if n_proc > 1 else None
+    segments = (stream_segments(inputfile, key_filter=key_filter) if stream
+                else read_segments(inputfile, key_filter=key_filter))
     cfg = SlicerConfig(step_size=step_size, low_frequency_cutoff=low_frequency_cutoff,
                        batch_size=batch_size)
     result = score_segments(task.score, segments, cfg, trigger_threshold=trigger_threshold,
                             white=white, whitened_out=whitened_file, verbose=verbose,
                             device=device, **stream_kwargs)
+    if n_proc > 1:
+        result = dataclasses.replace(result, triggers=gather_trigger_lists(result.triggers, shard_dir))
     return result.triggers, result.all_vals, result
 
 

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 
 from gwkit_torch.device import DeviceLike, resolve_device
+from gwkit_torch.native.hostio import (ArrayPrefetch, available, dataset_prefetch_meta,
+                                      read_contiguous_dataset)
 from gwkit_torch.ops.whiten import whiten_estimate
 
 
@@ -40,48 +42,107 @@ class Segment:
     white: bool = False
 
 
-def _segment_keys(f, detectors):
+def _segment_keys(f, detectors, key_filter):
+    """(detectors, keys): keys longest first, like the reference
+    (inference.py:546), then ``key_filter(i, key)`` over that order."""
     dets = detectors or sorted(f.keys())
-    # longest first, like the reference (inference.py:546)
     keys = sorted(f[dets[0]].keys(), key=lambda k: f[dets[0]][k].shape[0], reverse=True)
+    if key_filter is not None:
+        keys = [k for i, k in enumerate(keys) if key_filter(i, k)]
     return dets, keys
 
 
-def _read_segment(f, dets, key) -> Segment:
+def _datasets(f, dets, key):
+    """The key's dataset of each detector and their common start time."""
     dss = [f[det][key] for det in dets]
     start = dss[0].attrs["start_time"]
     for ds in dss:
         if ds.attrs["start_time"] != start:
             raise ValueError(f"segment {key}: detectors disagree on start_time")
-    delta_t = 1.0 / (1.0 / dss[0].attrs["delta_t"])
-    rows = [ds[()].astype(np.float32) for ds in dss]
-    return Segment(key=key, strain=np.stack(rows), start_time=float(start), delta_t=float(delta_t))
+    return dss, float(start)
 
 
-def read_segments(path: str, detectors: Optional[List[str]] = None) -> List[Segment]:
+def _read_segment(path: str, f, dets, key, delta_t_of) -> Segment:
+    """One segment, each row through the C++ reader where the dataset allows
+    it, else h5py; ``delta_t_of(attr)`` as the reading mode takes it."""
+    dss, start = _datasets(f, dets, key)
+    rows = []
+    for ds in dss:
+        native = read_contiguous_dataset(path, ds)
+        rows.append(native if native is not None else ds[()].astype(np.float32))
+    return Segment(key=key, strain=np.stack(rows), start_time=start,
+                   delta_t=delta_t_of(dss[0].attrs["delta_t"]))
+
+
+def _eager_delta_t(attr) -> float:
+    return float(1.0 / (1.0 / attr))  # gwkit's eager reader (slicer.py:65)
+
+
+def read_segments(path: str, detectors: Optional[List[str]] = None, key_filter=None) -> List[Segment]:
     """Every segment of an MLGWSC-style HDF5 file ({detector: {key:
-    dataset(attrs start_time, delta_t)}}), longest first."""
+    dataset(attrs start_time, delta_t)}}), longest first.
+
+    ``key_filter(i, key)`` over the longest-first order selects a subset
+    before any dataset is opened: a search over several processes shards
+    the segments this way without a process touching the others' data.
+    Contiguous uncompressed f64 datasets are read by the C++ double-buffered
+    reader (``gwkit_torch.native.hostio``), others by h5py."""
     import h5py
 
     with h5py.File(path, "r") as f:
-        dets, keys = _segment_keys(f, detectors)
-        return [_read_segment(f, dets, key) for key in keys]
+        dets, keys = _segment_keys(f, detectors, key_filter)
+        return [_read_segment(path, f, dets, key, _eager_delta_t) for key in keys]
 
 
-def stream_segments(path: str, detectors: Optional[List[str]] = None,
-                    prefetch: int = 1) -> Iterator[Segment]:
-    """Yield the file's segments longest first while a reader thread reads
-    ahead (the same contents and order as :func:`read_segments`)."""
+def native_streamable(path: str, detectors: Optional[List[str]] = None) -> bool:
+    """True when every dataset of the file can go through the C++ prefetch
+    path: the detectors hold the same keys, every dataset is contiguous
+    uncompressed f64 or f32, and the host-IO library builds."""
     import h5py
+
+    if not available():
+        return False
+    with h5py.File(path, "r") as f:
+        dets = detectors or sorted(f.keys())
+        keysets = [set(f[det].keys()) for det in dets]
+        if any(ks != keysets[0] for ks in keysets[1:]):
+            return False
+        return all(dataset_prefetch_meta(f[det][key]) is not None for det in dets for key in keysets[0])
+
+
+def stream_segments(path: str, detectors: Optional[List[str]] = None, prefetch: int = 1,
+                    key_filter=None) -> Iterator[Segment]:
+    """Yield the file's segments longest first while the next ``prefetch``
+    are read ahead; ``key_filter`` as :func:`read_segments`'.
+
+    When every dataset is contiguous uncompressed f64/f32 and the host-IO
+    library builds, segment i+1 is read by a C++ thread
+    (:class:`~gwkit_torch.native.hostio.ArrayPrefetch`, f64 converted to f32
+    there, no GIL) while segment i is scored. Otherwise (a chunked or
+    compressed dataset) a Python reader thread reads ahead. The contents and
+    order are :func:`read_segments`'; ``delta_t`` is the attribute as
+    stored, as gwkit's streaming readers take it (slicer.py:133, :162),
+    where the eager reader takes ``1/(1/attr)``."""
+    import h5py
+
+    metas = []
+    with h5py.File(path, "r") as f:
+        dets, keys = _segment_keys(f, detectors, key_filter)
+        for key in keys:
+            dss, start = _datasets(f, dets, key)
+            metas.append((key, start, float(dss[0].attrs["delta_t"]),
+                          [dataset_prefetch_meta(ds) for ds in dss]))
+    if available() and all(m is not None for *_, ms in metas for m in ms):
+        yield from _stream_native(path, metas, prefetch)
+        return
 
     q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
 
     def reader():
         try:
             with h5py.File(path, "r") as f:
-                dets, keys = _segment_keys(f, detectors)
                 for key in keys:
-                    q.put(_read_segment(f, dets, key))
+                    q.put(_read_segment(path, f, dets, key, float))
         except BaseException as e:  # surfaced at the consumer below
             q.put(e)
         else:
@@ -97,6 +158,22 @@ def stream_segments(path: str, detectors: Optional[List[str]] = None,
             raise item
         yield item
     thread.join()
+
+
+def _stream_native(path: str, metas: list, prefetch: int) -> Iterator[Segment]:
+    """Segments from C++ whole-array reads, ``prefetch`` segments ahead."""
+    inflight = {}
+    try:
+        for i, (key, start, delta_t, _) in enumerate(metas):
+            for j in range(i, min(i + 1 + max(1, prefetch), len(metas))):
+                if j not in inflight:
+                    inflight[j] = [ArrayPrefetch(path, *m) for m in metas[j][3]]
+            rows = [p.wait() for p in inflight.pop(i)]
+            yield Segment(key=key, strain=np.stack(rows), start_time=start, delta_t=delta_t)
+    finally:  # a consumer that stops early joins the reads still in flight
+        for reads in inflight.values():
+            for p in reads:
+                p.close()
 
 
 @dataclasses.dataclass

@@ -19,11 +19,21 @@ optax's ``warmup_cosine_decay_schedule`` as gwkit's ``make_optimizer``
 builds it. The state converts to optax's layout for the checkpoints.
 
 Steps run eagerly; the losses of an epoch stay on the device until it ends
-(one synchronization per epoch, as gwkit's ``run_epoch``). The mesh
-argument of gwkit's Trainer is not ported yet.
+(one synchronization per epoch, as gwkit's ``run_epoch``).
+
+With a mesh (``gwkit_torch.parallel.mesh``) the trainable and frozen trees
+are laid out as gwkit lays them out (Megatron encoder, adapters following
+their base projections, the rest replicated) as this rank's local slices;
+each step takes this rank's rows of the global batch over "data", runs the
+loss inside ``active(mesh)``, and averages the loss and every gradient over
+"data" in one flattened all_reduce. The global-norm clip sums the squared
+norms of model-sharded leaves over "model" and counts replicated leaves
+once. Checkpoints and exports hold full leaves (:func:`gather_tree`),
+written by rank 0 while the others wait at a barrier.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -35,6 +45,9 @@ import numpy as np
 import torch
 
 from gwkit_torch.io import tree_leaves, tree_unflatten
+from gwkit_torch.parallel.mesh import (MODEL_AXIS, Mesh, active, batch_sharding, data_mean_, gather_rows,
+                                       gather_tree, model_sum_, shard_task_tree, shard_tree, spec_leaves,
+                                       task_shardings)
 from gwkit_torch.train.checkpoints import CheckpointManager, from_gwkit_tree, to_gwkit_tree
 from gwkit_torch.train.curriculum import CurriculumScheduler
 
@@ -105,11 +118,14 @@ class Adam:
         return AdamState(0, zeros(), zeros(), 0 if callable(self.lr) else None)
 
     @torch.no_grad()
-    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState) -> AdamState:
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor], state: AdamState,
+               g_norm: Optional[torch.Tensor] = None) -> AdamState:
         """One step in place; no host synchronization (the clip decision
-        stays on the device)."""
+        stays on the device). ``g_norm``: the gradients' global norm where
+        the caller computes it (a model mesh), else computed here."""
         if self.clip_norm and self.clip_norm > 0:
-            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            if g_norm is None:
+                g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
             keep = g_norm < self.clip_norm
             grads = [torch.where(keep, g, (g / g_norm) * self.clip_norm) for g in grads]
         count = state.count + 1
@@ -168,6 +184,12 @@ def _to_host(tree):
     return tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor) else tree
 
 
+def _gather_aux(tree, mesh: Mesh):
+    if isinstance(tree, dict):
+        return {k: _gather_aux(v, mesh) for k, v in tree.items()}
+    return gather_rows(tree, mesh) if isinstance(tree, torch.Tensor) and tree.dim() else tree
+
+
 def _child(generator: torch.Generator) -> torch.Generator:
     """A new generator seeded from ``generator`` (the counterpart of a key split)."""
     return torch.Generator().manual_seed(int(torch.randint(0, 2 ** 62, (1,), generator=generator)))
@@ -182,9 +204,20 @@ class Trainer:
 
     def __init__(self, loss_fn: Callable, trainable: dict, frozen: dict,
                  cfg: TrainConfig = TrainConfig(), export_components: Optional[Callable] = None,
-                 metrics_callback: Optional[Callable[[int, dict], None]] = None):
+                 metrics_callback: Optional[Callable[[int, dict], None]] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.loss_fn = loss_fn
+        self.mesh = mesh
+        if mesh is not None:
+            self._specs = task_shardings(trainable)
+            devices = {t.device for t in tree_leaves([trainable, frozen])}
+            if devices != {mesh.device}:
+                raise ValueError(f"Trainer: the mesh holds its buffers on {mesh.device}, the "
+                                 f"parameters lie on {sorted(map(str, devices))}")
+            trainable, frozen = shard_task_tree(mesh, trainable), shard_task_tree(mesh, frozen)
+            # leaves whose squared norms sum over "model" in the global-norm clip
+            self._model_split = [MODEL_AXIS in spec and mesh.n_model > 1 for spec in spec_leaves(self._specs)]
         self.frozen = frozen
         self.optimizer = make_optimizer(cfg)
         self._set_trainable(trainable)
@@ -198,20 +231,60 @@ class Trainer:
         for p in self.params:
             p.requires_grad_(True)
 
-    def train_step(self, batch, generator: Optional[torch.Generator] = None):
-        loss, aux = self.loss_fn(self.trainable, self.frozen, batch, generator)
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+    def _local(self, batch):
+        """This rank's rows of a global batch (the batch itself without a mesh)."""
+        if self.mesh is None:
+            return batch
+        return shard_tree(self.mesh, batch, batch_sharding(batch))
+
+    def _gradients(self, batch, generator: Optional[torch.Generator] = None):
+        """(loss, aux, gradients, global norm or None) of one step: with a
+        mesh the loss and gradients averaged over "data" and the norm over
+        the whole tree (None: the optimizer computes it)."""
+        with active(self.mesh):
+            loss, aux = self.loss_fn(self.trainable, self.frozen, self._local(batch), generator)
+            grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
-        self.opt_state = self.optimizer.update(self.params, grads, self.opt_state)
-        return loss.detach(), aux
+        loss, g_norm = loss.detach(), None
+        if self.mesh is not None:
+            loss, grads = self._data_mean([loss, *grads])
+            g_norm = self._global_norm(grads)
+        return loss, aux, grads, g_norm
+
+    def train_step(self, batch, generator: Optional[torch.Generator] = None):
+        loss, aux, grads, g_norm = self._gradients(batch, generator)
+        self.opt_state = self.optimizer.update(self.params, grads, self.opt_state, g_norm)
+        return loss, aux
 
     @torch.no_grad()
     def eval_step(self, batch):
-        return self.loss_fn(self.trainable, self.frozen, batch, None)
+        with active(self.mesh):
+            return self.loss_fn(self.trainable, self.frozen, self._local(batch), None)
+
+    def _data_mean(self, tensors: List[torch.Tensor]):
+        """(first, rest) of ``tensors`` averaged over "data" in one flattened all_reduce."""
+        flat = data_mean_(torch.cat([t.reshape(-1).float() for t in tensors]), self.mesh)
+        out = [chunk.view_as(t).to(t.dtype) for chunk, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+        return out[0], out[1:]
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> Optional[torch.Tensor]:
+        """optax's global norm over the whole tree: model-sharded leaves' squared
+        norms summed over "model", replicated leaves counted once (None on a
+        mesh without model sharding: the optimizer's own computation)."""
+        if not any(self._model_split):
+            return None
+        sq = [torch.sum(g * g) for g in grads]
+        split = [i for i, s in enumerate(self._model_split) if s]
+        summed = model_sum_(torch.stack([sq[i] for i in split]), self.mesh)
+        for i, v in zip(split, summed):
+            sq[i] = v
+        return torch.sqrt(sum(sq))
 
     def run_epoch(self, batches: Iterable, generator: Optional[torch.Generator] = None,
                   train: bool = True):
-        """(mean loss, list of aux); the losses stay on the device until the end."""
+        """(mean loss, list of aux); the losses stay on the device until the
+        end. With a mesh the aux rows are gathered over "data" at the end, so
+        each aux holds the global batch."""
         losses, auxes = [], []
         for batch in batches:
             loss, aux = self.train_step(batch, generator) if train else self.eval_step(batch)
@@ -219,7 +292,12 @@ class Trainer:
             auxes.append(aux)
         if not losses:
             return 0.0, []
-        total = float(torch.stack(losses).sum())
+        losses = torch.stack(losses)
+        if self.mesh is not None:
+            if not train:  # a training step's loss is averaged with its gradients
+                losses = data_mean_(losses, self.mesh)
+            auxes = [_gather_aux(a, self.mesh) for a in auxes]
+        total = float(losses.sum())
         return total / len(losses), [_to_host(a) for a in auxes]
 
     def fit(self, train_batches: Callable[[torch.Generator], Iterable],
@@ -233,36 +311,41 @@ class Trainer:
         epoch's metrics then go to the ``metrics_callback``. Returns the
         best validation loss."""
         cfg = self.cfg
+        writer = self.mesh is None or self.mesh.rank == 0  # the rank that writes files
         os.makedirs(outdir, exist_ok=True)
         losses_path = os.path.join(outdir, "losses.txt")
         if os.path.isfile(losses_path) and not (force or resume):
             raise RuntimeError(f"Output file exists: {losses_path}")
-        with open(os.path.join(outdir, "train_config.json"), "w") as cf:
-            json.dump(dataclasses.asdict(cfg), cf, indent=2, default=str)
+        if self.mesh is not None:
+            self.mesh.barrier()  # every rank has looked before rank 0 writes
+        if writer:
+            with open(os.path.join(outdir, "train_config.json"), "w") as cf:
+                json.dump(dataclasses.asdict(cfg), cf, indent=2, default=str)
 
         ckpt = CheckpointManager(outdir, self.optimizer, export_components=self.export_components)
         start_epoch, best_val = 1, float("inf")
         if resume:
-            start_epoch, best_val, trainable, self.opt_state = ckpt.resume(
-                resume, self.trainable, self.opt_state)
-            self._set_trainable(trainable)
+            start_epoch, best_val, trainable, opt_state = ckpt.resume(resume, *self._full_state())
+            self._set_state(trainable, opt_state)
             logging.info("Resumed (%s) at epoch %d, best_val=%.6e", resume, start_epoch, best_val)
 
         gen = torch.Generator().manual_seed(cfg.seed)
         patience = 0
         fit_t0 = time.time()
-        with open(losses_path, "a", buffering=1) as f:
+        with (open(losses_path, "a", buffering=1) if writer else contextlib.nullcontext()) as f:
             for epoch in range(start_epoch, cfg.epochs + 1):
                 g_train, g_valid = _child(gen), _child(gen)
                 t0 = time.time()
                 train_loss, _ = self.run_epoch(train_batches(g_train), g_train, train=True)
                 val_loss, val_aux = self.run_epoch(valid_batches(g_valid), g_valid, train=False)
                 dt = time.time() - t0
-                f.write(f"{epoch:04d}\t{train_loss:.6f}\t{val_loss:.6f}\n")
+                if writer:
+                    f.write(f"{epoch:04d}\t{train_loss:.6f}\t{val_loss:.6f}\n")
                 logging.info("epoch %04d train %.6f valid %.6f (%.1fs)", epoch, train_loss, val_loss, dt)
                 metrics = {"train_loss": train_loss, "val_loss": val_loss, "epoch_seconds": dt}
+                trainable, opt_state = self._full_state()
                 if eval_callback is not None:
-                    metrics.update(eval_callback(epoch, self.trainable, val_aux) or {})
+                    metrics.update(eval_callback(epoch, trainable, val_aux) or {})
                 if self.metrics_callback is not None:
                     self.metrics_callback(epoch, metrics)
 
@@ -273,7 +356,10 @@ class Trainer:
                     logging.info("New best @ epoch %04d — val_loss=%.6e", epoch, val_loss)
                 else:
                     patience += 1
-                ckpt.save_epoch(epoch, best_val, self.trainable, self.opt_state, is_best)
+                if writer:
+                    ckpt.save_epoch(epoch, best_val, trainable, opt_state, is_best)
+                if self.mesh is not None:
+                    self.mesh.barrier()
 
                 if scheduler is not None:
                     scheduler.step(val_loss)
@@ -289,6 +375,29 @@ class Trainer:
                     break
         logging.info("Training complete. Best validation loss: %.6f", best_val)
         return best_val
+
+    def _full_state(self):
+        """(trainable, optimizer state) with full leaves: gathered over the
+        mesh, or the trainer's own without one."""
+        if self.mesh is None:
+            return self.trainable, self.opt_state
+        full = lambda leaves: tree_leaves(gather_tree(self.mesh, tree_unflatten(self.trainable, leaves),
+                                                      self._specs))
+        st = self.opt_state
+        return (gather_tree(self.mesh, self.trainable, self._specs),
+                AdamState(st.count, full(st.mu), full(st.nu), st.schedule_count))
+
+    def _set_state(self, trainable: dict, opt_state: AdamState) -> None:
+        """Install full-leaved trainables and optimizer state (this rank's
+        slices of them on a mesh)."""
+        if self.mesh is not None:
+            local = lambda leaves: tree_leaves(shard_tree(self.mesh, tree_unflatten(trainable, leaves),
+                                                          self._specs))
+            opt_state = AdamState(opt_state.count, local(opt_state.mu), local(opt_state.nu),
+                                  opt_state.schedule_count)
+            trainable = shard_tree(self.mesh, trainable, self._specs)
+        self._set_trainable(trainable)
+        self.opt_state = opt_state
 
     def reset_optimizer(self) -> None:
         """A fresh optimizer state for the current trainables (a curriculum

@@ -1,6 +1,7 @@
 """The port stands alone: every module of gwkit_torch imports with jax,
 gwkit, h5py, safetensors, transformers, matplotlib and tensorboard
-blocked, and its entry points refuse to run on the CPU unless asked to."""
+blocked, and its entry points, the parallel layer's included, refuse to run
+on the CPU unless asked to."""
 import os
 import subprocess
 import sys
@@ -41,7 +42,8 @@ def test_every_module_imports_with_jax_gwkit_and_hdf5_blocked():
                  "cli.evaluate_classifier",  # the mel workloads' modules are among them
                  "evaluation.efficiency", "evaluation.stream", "search.bulk", "search.realevents",
                  "cli.train_efficiency", "cli.calculate_efficiencies", "cli.evaluate_stream", "cli.real_events",
-                 "cli.preprocess"):  # and the efficiency test's
+                 "cli.preprocess",  # and the efficiency test's
+                 "native.hostio", "parallel.mesh", "parallel.distributed"):  # and the parallel layer's
         assert os.path.isfile(os.path.join(ROOT, "gwkit_torch", *name.split(".")) + ".py"), name
 
 
@@ -54,6 +56,8 @@ def test_blocker_tells_gwkit_torch_from_gwkit():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    import dataclasses
+
     import numpy as np
 
     from gwkit_torch.cli import inference
@@ -144,6 +148,21 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                       (preprocess, ["resample", "in.hdf", str(tmp_path / "out.hdf")])):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(args)
+    # the parallel layer: a process group, a mesh and a mesh trainer
+    from gwkit_torch.parallel.distributed import initialize
+    from gwkit_torch.parallel.mesh import make_mesh
+    from gwkit_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        initialize("127.0.0.1:1", 2, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(lambda *a: None, {"head": [torch.zeros(2)]}, {}, mesh=make_mesh())
+    assert initialize(device="cpu") is None  # one process, no coordinator: nothing to start
+    with pytest.raises(ValueError, match="buffers on cuda"):  # CPU parameters on a card's mesh
+        Trainer(lambda *a: None, {"head": [torch.zeros(2)]}, {},
+                mesh=dataclasses.replace(make_mesh(device="cpu"), device=torch.device("cuda", 0)))
     # host code: the stream evaluation and the windowing need no card
     from gwkit_torch.cli import evaluate_stream
 
