@@ -122,10 +122,34 @@ Phases, each printing one JSON line:
              _data_mean, all_reduce and flatten alone, and a 3-step profile
              of each trainer; the trigger shards through gather_trigger_lists and a
              shard_dir; make_mesh(n_model=2) refused in a world of one;
+  9 generate data generation's physics on the card and a search of its
+             output: the design PSD and the H1/L1 variants for 300 s at
+             2048 Hz (finite, zero below 9 Hz, positive above); 300 s of
+             two-detector noise from the variants (NoiseGenerator, physical
+             scale), a Welch PSD's median ratio to the target in
+             [0.9, 1.1] over 30-900 Hz, the colored-noise core card vs CPU
+             from the same draws (1e-4 of the max), strain-seconds/s; the
+             irfft of spectra with imaginary DC and Nyquist parts card vs
+             CPU (1e-5 of the max: both drop those parts); 64
+             ds3/4 waveforms of 64 s (gwkit's inject_batch and
+             wave_duration) for imrphenomd, imrphenomxphm and
+             imrphenomxphm-twospin timed on the card, each waveform
+             within 2e-3 of its max |h| of the same function on the CPU,
+             waveforms/s, peak memory, the two-spin ODE timed alone and
+             profiled; the Euler angles of that batch (closed form and
+             ODE) card vs CPU within 1e-4 of their max, and the aligned
+             limit frozen exactly on the card; 20 imrphenomxphm injections projected onto H1 and
+             L1 (antenna patterns, the geocenter delay as an FD phase),
+             scaled to network SNRs from U(8, 30) against the normalized
+             PSDs (recomputed within 1e-4) and added to the noise; phase
+             4's bf16 task and threshold on that foreground and on a
+             second noise draw (background): exactly 4 A, 8 B and 4 C a
+             batch, no plain call, get_stats under phase 4c's checks, the
+             found count and sensitive distances printed;
   kernels    one line per the kernel table (times, bound, launches, by
              path: search, search_stream, search_int8, train, mel,
              mel_train, efficiency_train, efficiency, real_events,
-             search_mesh, train_mesh); kernel
+             search_mesh, train_mesh, search_generated); kernel
              E's times, bound and int_mm times are the sums of its four
              launches a layer, kernel B's of its two;
 then the card's name and power limit, and the result line last.
@@ -1065,7 +1089,7 @@ def profiled(phase, fn, **extra):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    groups, top = {}, []
+    groups, top, launches = {}, [], 0
     for evt in prof.key_averages():
         if "cuda" not in str(getattr(evt, "device_type", "")).lower():
             continue
@@ -1074,11 +1098,12 @@ def profiled(phase, fn, **extra):
             continue
         g = _kernel_group(evt.key)
         groups[g] = groups.get(g, 0.0) + us / 1e3
+        launches += evt.count
         top.append((us / 1e3, evt.key[:80], evt.count))
     device_ms = sum(groups.values())
     top.sort(reverse=True)
     emit(phase, **extra, wall_ms_profiled=wall_ms, device_ms=device_ms if device_ms else "not measured",
-         device_busy_share=device_ms / wall_ms if device_ms else "not measured",
+         device_busy_share=device_ms / wall_ms if device_ms else "not measured", device_kernels=launches,
          device_ms_by_group={k: v for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
          top_kernels=[{"ms": t, "name": n, "count": c} for t, n, c in top[:14]])
     return groups
@@ -2454,6 +2479,334 @@ def parallel_phase(checks, smi, bf16_search):
     return search_mesh, train_mesh
 
 
+# phase 9: data generation's physics on the card (gwkit_torch.data, ops.psd/whiten/snr) and the search of
+# its output: a 300 s two-detector MLGWSC-1-style segment at 2048 Hz
+GEN_SECONDS, GEN_FS, GEN_F_LOW = 300.0, 2048, 9.0
+GEN_WAVE_BATCH, GEN_WAVE_SECONDS = 64, 64.0  # gwkit's challenge inject_batch and wave_duration
+GEN_APPROXIMANTS = ("imrphenomd", "imrphenomxphm", "imrphenomxphm-twospin")
+GEN_INJECTIONS, GEN_SNR = 20, (8.0, 30.0)
+GEN_WAVE_TOL = 2e-3    # card vs CPU, of each waveform's max |h|: float32 phases of 1e3-1e5 rad
+GEN_NOISE_TOL = 1e-4   # colored noise, card vs CPU from the same draws, of the max
+GEN_SNR_TOL = 1e-4     # recomputed network SNR vs its target, relative
+GEN_IRFFT_TOL = 1e-5   # C2R of spectra with imaginary DC/Nyquist parts, card vs CPU, of the max
+# Euler angles card vs CPU, of each angle's max |.|: eps is a float32 cumsum
+# over 65,537 bins (or 384 steps), summed in another order on the card (a
+# parallel scan), so it differs by some sqrt(N) ulps of the running sum
+GEN_ANGLE_TOL = 1e-4
+
+
+def _gen_noise(psds, seed, dev):
+    """(2, N) physical-scale noise, one NoiseGenerator a detector."""
+    from gwkit_torch.data.noise import NoiseGenerator
+
+    return torch.cat([NoiseGenerator(p, GEN_FS, GEN_F_LOW, seed=seed + i, device=dev).get(1, GEN_SECONDS)
+                      for i, p in enumerate(psds)])
+
+
+def _gen_psd_and_noise(checks, smi, dev):
+    """PSDs, then 300 s of noise for H1 and L1 from their variants: a Welch
+    PSD against the target, the colored-noise core card vs CPU from the same
+    draws, the rate. Returns the two PSDs."""
+    from gwkit_torch.data.noise import colored_noise_core
+    from gwkit_torch.ops.psd import aligo_zdhp_psd, psd_variant, welch_psd
+
+    n = int(GEN_SECONDS * GEN_FS)
+    flen, df = n // 2 + 1, GEN_FS / n
+    f = np.arange(flen) * df
+    t0 = time.perf_counter()
+    psds = {"aLIGOZeroDetHighPower": aligo_zdhp_psd(flen, df, GEN_F_LOW),
+            "H1/0": psd_variant(flen, df, GEN_F_LOW, "H1", 0), "L1/0": psd_variant(flen, df, GEN_F_LOW, "L1", 0)}
+    psd_s = time.perf_counter() - t0
+    shapes = {k: bool(np.isfinite(p).all() and (p[f < GEN_F_LOW] == 0).all() and (p[f >= GEN_F_LOW] > 0).all())
+              for k, p in psds.items()}
+    ok = all(shapes.values())
+    emit("generation_psd", bins=flen, delta_f=df, host_s=psd_s, finite_zero_below_cutoff_positive_above=shapes,
+         ok=ok)
+    if not ok:
+        checks.failed.append("generation PSDs")
+    variants = [psds["H1/0"], psds["L1/0"]]
+
+    _gen_noise(variants, 1, dev)  # warm: cuFFT plans, the generator
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    noise = _gen_noise(variants, 11, dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    ratios = {}
+    for det, x, p in zip(("H1", "L1"), noise, variants):
+        c = float(p[p > 0].mean())
+        est = welch_psd((x / np.sqrt(c))[None], 1.0 / GEN_FS, segment_duration=4.0)[0].cpu().numpy()
+        f_est = np.arange(len(est)) * 0.25
+        band = (f_est >= 30.0) & (f_est <= 900.0)
+        ratios[det] = float(np.median(est[band] / (np.interp(f_est, f, p) / c)[band]))
+    ok_psd = all(0.9 <= r <= 1.1 for r in ratios.values()) and bool(torch.isfinite(noise).all())
+
+    # the core from the same draws on both devices (the card's draws moved to the CPU)
+    g = torch.Generator(device=dev).manual_seed(5)
+    a, b = (torch.randn((2, flen), generator=g, device=dev) for _ in range(2))
+    pn = torch.from_numpy(np.stack([p / p[p > 0].mean() for p in variants]).astype(np.float32))
+    on_card = colored_noise_core(a, b, n, 1.0 / GEN_FS, pn.to(dev)).cpu()
+    on_cpu = colored_noise_core(a.cpu(), b.cpu(), n, 1.0 / GEN_FS, pn)
+    err = float((on_card - on_cpu).abs().max() / on_cpu.abs().max())
+    ok_core = err <= GEN_NOISE_TOL
+    emit("generation_noise", card=smi, seconds=GEN_SECONDS, detectors=2, std=[float(x.std()) for x in noise],
+         welch_median_ratio_30_900hz=ratios, strain_seconds_per_second=2 * GEN_SECONDS / gen_s, wall_s=gen_s,
+         core_card_vs_cpu_max_err_of_max=err, tol=GEN_NOISE_TOL, ok=ok_psd and ok_core)
+    if not ok_psd:
+        checks.failed.append("generation noise PSD")
+    if not ok_core:
+        checks.failed.append("generation noise card vs CPU")
+    return variants, noise
+
+
+def _td(params, approximant, dev):
+    from gwkit_torch.data.waveforms import td_polarizations
+
+    return td_polarizations(params, GEN_WAVE_SECONDS, GEN_FS, 20.0, approximant, device=dev)
+
+
+def _gen_waveforms(checks, smi, dev):
+    """A batch of GEN_WAVE_BATCH waveforms of GEN_WAVE_SECONDS at 2048 Hz
+    from the ds3/4 population for each of GEN_APPROXIMANTS: timed on the
+    card, each waveform against the same function on the CPU; the two-spin
+    ODE timed alone. First, the irfft of spectra whose DC and Nyquist bins
+    have imaginary parts (the FD models put such values at Nyquist), card
+    vs CPU: pocketfft drops those parts, and td_polarizations counts on
+    cuFFT's C2R dropping them too, which it does not promise."""
+    from gwkit_torch.data.precession_ode import integrate_precession
+    from gwkit_torch.data.waveforms import SourceDistribution
+
+    n = int(GEN_WAVE_SECONDS * GEN_FS)
+    z = torch.randn((4, n // 2 + 1), generator=torch.Generator().manual_seed(0), dtype=torch.complex64)
+    probe = float((torch.fft.irfft(z.to(dev), n).cpu() - torch.fft.irfft(z, n)).abs().max()
+                  / torch.fft.irfft(z, n).abs().max())
+    ok = probe <= GEN_IRFFT_TOL
+    emit("generation_irfft_probe", n=n, card_vs_cpu_max_err_of_max=probe, tol=GEN_IRFFT_TOL, ok=ok)
+    if not ok:
+        checks.failed.append("irfft of imaginary DC/Nyquist parts, card vs CPU")
+    out = {}
+    for ap in GEN_APPROXIMANTS:
+        params = SourceDistribution(spin_max=0.99, isotropic_spins=True, approximant=ap).sample(
+            np.random.default_rng(9), GEN_WAVE_BATCH)
+        params["tc"] = np.full(GEN_WAVE_BATCH, 0.75 * GEN_WAVE_SECONDS, np.float32)  # generate.py's window
+        _td(params, ap, dev)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = _td(params, ap, dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        cpu = _td(params, ap, "cpu")
+        cpu_s = time.perf_counter() - t0
+        errs = []
+        for hk, hc in zip(card, cpu):
+            scale = hc.abs().amax(dim=-1)
+            errs.append(((hk.cpu() - hc).abs().amax(dim=-1) / scale))
+        err = torch.stack(errs)  # (2, B): h+ and hx of each waveform
+        finite = all(bool(torch.isfinite(h).all()) for h in card)
+        ok = finite and float(err.max()) <= GEN_WAVE_TOL
+        rec = dict(approximant=ap, batch=GEN_WAVE_BATCH, seconds=GEN_WAVE_SECONDS, sample_rate=GEN_FS,
+                   wall_s_median=statistics.median(times), wall_s=times,
+                   waveforms_per_second=GEN_WAVE_BATCH / statistics.median(times),
+                   cpu_wall_s=cpu_s, cpu_waveforms_per_second=GEN_WAVE_BATCH / cpu_s,
+                   peak_mem_gb=peak / 1e9, max_err_of_max=float(err.max()),
+                   median_err_of_max=float(err.median()), tol=GEN_WAVE_TOL)
+        if ap.endswith("-twospin"):
+            m1, m2 = (torch.as_tensor(params[k], device=dev) for k in ("mass1", "mass2"))
+            s1, s2 = (torch.as_tensor(np.stack([params[f"spin{i}x"], params[f"spin{i}y"], params[f"spin{i}z"]], 1),
+                                      device=dev) for i in (1, 2))
+            integrate_precession(m1, m2, s1, s2, 20.0, 1024.0)
+            ode = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                integrate_precession(m1, m2, s1, s2, 20.0, 1024.0)
+                torch.cuda.synchronize()
+                ode.append(time.perf_counter() - t0)
+            rec.update(ode_wall_s_median=statistics.median(ode), ode_steps=384,
+                       ode_ms_per_step=statistics.median(ode) / 384 * 1e3,
+                       ode_share_of_batch=statistics.median(ode) / statistics.median(times))
+            profiled("generation_ode_profile", lambda: integrate_precession(m1, m2, s1, s2, 20.0, 1024.0),
+                     batch=GEN_WAVE_BATCH, steps=384)
+        emit("generation_waveforms", card=smi, **rec, ok=ok)
+        if not ok:
+            checks.failed.append(f"generation waveforms {ap}")
+        out[ap] = rec
+        del card, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gen_angles(checks, dev):
+    """The precession angles on the card: the aligned limit frozen exactly
+    (atan2(0, 0) = 0 on the card too), and the closed-form and two-spin
+    (alpha, cos beta, eps) of the ds3/4 batch against the same functions
+    on the CPU within GEN_ANGLE_TOL of each angle's max."""
+    from gwkit_torch.data.imrphenomp import precession_angles
+    from gwkit_torch.data.precession_ode import precession_angles_numerical
+    from gwkit_torch.data.waveforms import SourceDistribution
+
+    p = SourceDistribution(spin_max=0.99, isotropic_spins=True).sample(np.random.default_rng(9), GEN_WAVE_BATCH)
+    freqs = torch.arange(int(GEN_WAVE_SECONDS * GEN_FS) // 2 + 1, dtype=torch.float32) / GEN_WAVE_SECONDS
+
+    def angles(device):
+        t = {k: torch.as_tensor(v, device=device) for k, v in p.items()}
+        m1, m2, c1, c2 = t["mass1"], t["mass2"], t["spin1z"], t["spin2z"]
+        s_z = (c1 * m1 ** 2 + c2 * m2 ** 2) / (m1 + m2) ** 2
+        col = lambda x: x[:, None]
+        closed = precession_angles(freqs.to(device), col(m1), col(m2), col(s_z), col(t["chi_p"]), col(t["alpha0"]))
+        s1 = torch.stack([t["spin1x"], t["spin1y"], c1], dim=-1)
+        s2 = torch.stack([t["spin2x"], t["spin2y"], c2], dim=-1)
+        ode = precession_angles_numerical(m1, m2, s1, s2, alpha0=col(t["alpha0"]))(freqs.to(device))
+        return closed + ode
+
+    names = [f"{model}_{a}" for model in ("closed_form", "two_spin") for a in ("alpha", "cos_beta", "eps")]
+    err = {n: float((k.cpu() - c).abs().max() / c.abs().max()) for n, k, c in zip(names, angles(dev), angles("cpu"))}
+    z = torch.zeros(4, device=dev)
+    s_al = torch.stack([z, z, torch.tensor([0.4, -0.7, 0.9, 0.0], device=dev)], dim=-1)
+    a, cb, e = precession_angles_numerical(torch.full((4,), 36.0, device=dev), torch.full((4,), 29.0, device=dev),
+                                           s_al, s_al.flip(0), alpha0=0.7)(freqs.to(dev))
+    frozen = bool((a == np.float32(0.7)).all() and (cb == 1.0).all() and (e == np.float32(0.7)).all())
+    ok = frozen and all(v <= GEN_ANGLE_TOL for v in err.values())
+    emit("generation_angles", batch=GEN_WAVE_BATCH, bins=len(freqs), card_vs_cpu_max_err_of_max=err,
+         tol=GEN_ANGLE_TOL, aligned_limit_frozen_on_card=frozen, ok=ok)
+    if not ok:
+        checks.failed.append("generation precession angles")
+
+
+def _gen_injections(checks, noise, dev):
+    """GEN_INJECTIONS ds3/4 injections (imrphenomxphm) with tc spread over
+    the segment as phase 4c spreads its chirps: projected onto H1 and L1
+    (antenna patterns, the geocenter delay as an FD phase, as generate.py),
+    scaled to a network SNR drawn from U(8, 30) against the detectors'
+    variants normalized (on the 64 s window's grid), added to ``noise`` in
+    place. Returns the injection table for get_stats."""
+    from gwkit_torch.data.detector import antenna_pattern, time_delay_from_earth_center
+    from gwkit_torch.data.waveforms import SourceDistribution, fd_polarizations_switch
+    from gwkit_torch.ops.psd import psd_variant
+    from gwkit_torch.ops.snr import network_snr, optimal_snr
+
+    rng = np.random.default_rng(19)
+    params = SourceDistribution(spin_max=0.99, isotropic_spins=True, approximant="imrphenomxphm").sample(
+        rng, GEN_INJECTIONS)
+    tc = 5.0 + 14.0 * np.arange(GEN_INJECTIONS) + rng.uniform(0.5, 4.5, GEN_INJECTIONS)
+    target = rng.uniform(*GEN_SNR, GEN_INJECTIONS)
+    n = int(GEN_WAVE_SECONDS * GEN_FS)
+    dt = 1.0 / GEN_FS
+    tc_win = 0.75 * GEN_WAVE_SECONDS
+    freqs = torch.arange(n // 2 + 1, dtype=torch.float32, device=dev) / GEN_WAVE_SECONDS
+    t0 = time.perf_counter()
+    p = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
+    hp, hc = fd_polarizations_switch(
+        freqs, "imrphenomxphm", 20.0, p["mass1"], p["mass2"], p["distance"], p["inclination"],
+        torch.full_like(p["mass1"], tc_win), p["coa_phase"], p["spin1z"], p["spin2z"], p["chi_p"], p["alpha0"])
+    dets, strains, psd_n, scales = ("H1", "L1"), [], [], []
+    for i, det in enumerate(dets):
+        fp, fc = antenna_pattern(det, params["ra"], params["dec"], params["polarization"], tc)
+        delay = time_delay_from_earth_center(det, params["ra"], params["dec"], tc)
+        col = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=dev)[:, None]
+        hdet = (col(fp) * hp + col(fc) * hc) * torch.exp(-2j * np.pi * freqs * col(delay))
+        strains.append(torch.fft.irfft(hdet, n) / dt)
+        pw = psd_variant(n // 2 + 1, 1.0 / GEN_WAVE_SECONDS, GEN_F_LOW, det, 0)
+        c = float(pw[pw > 0].mean())
+        psd_n.append(torch.from_numpy((pw / c).astype(np.float32)).to(dev))
+        scales.append(np.float32(np.sqrt(c)))
+    # SNRs on normalized strain against the normalized PSD (f32 range, as gwkit's callers)
+    snr = torch.stack([optimal_snr(h / s, pn, dt, 20.0) for h, pn, s in zip(strains, psd_n, scales)], dim=-1)
+    net = network_snr(snr)
+    gain = torch.as_tensor(target, dtype=torch.float32, device=dev) / net
+    strains = [h * gain[:, None] for h in strains]
+    again = network_snr(torch.stack([optimal_snr(h / s, pn, dt, 20.0) for h, pn, s in zip(strains, psd_n, scales)],
+                                    dim=-1)).cpu().numpy()
+    seg_n = noise.shape[-1]
+    for j in range(GEN_INJECTIONS):
+        s = int(round((tc[j] - tc_win) * GEN_FS))
+        ws, we = max(0, -s), n - max(0, s + n - seg_n)
+        for i in range(len(dets)):
+            noise[i, max(s, 0): min(s + n, seg_n)] += strains[i][j, ws:we]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rel = np.abs(again / target - 1.0)
+    ok = bool(rel.max() <= GEN_SNR_TOL) and bool(torch.isfinite(noise).all())
+    emit("generation_injections", injections=GEN_INJECTIONS, approximant="imrphenomxphm",
+         target_network_snr=target.tolist(), recomputed_max_rel_err=float(rel.max()), tol=GEN_SNR_TOL,
+         snr_before_scaling=net.cpu().numpy().tolist(), wall_s=wall, ok=ok)
+    if not ok:
+        checks.failed.append("generation injection SNRs")
+    # a source scaled by gain sits at distance / gain
+    return {"tc": tc, "distance": params["distance"] / gain.cpu().numpy(), "mass1": params["mass1"],
+            "mass2": params["mass2"]}
+
+
+def generation_phase(checks, smi, bf16):
+    """Phase 9: PSDs, colored noise, waveforms and injections on the card,
+    then phase 4's bf16 task (loaded anew) and threshold on the generated
+    foreground and background: launches, and the challenge statistics.
+    Returns the searches' launches."""
+    from gwkit_torch.search.cluster import SECONDS_PER_MONTH, get_clusters
+    from gwkit_torch.search.engine import score_segments
+    from gwkit_torch.search.slicer import Segment, SlicerConfig
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    psds, foreground = _gen_psd_and_noise(checks, smi, dev)
+    waveforms = _gen_waveforms(checks, smi, dev)
+    _gen_angles(checks, dev)
+    inj = _gen_injections(checks, foreground, dev)
+    background = _gen_noise(psds, 21, dev)
+
+    task, threshold = _capstone_search_task(), bf16["threshold"]
+    cfg = SlicerConfig(batch_size=128)
+    n_batches = [0]
+
+    def score(windows):
+        n_batches[0] += 1
+        return task.score(windows)
+
+    segs = {name: Segment(key=f"generated_{name}", strain=x.cpu().numpy(), start_time=0.0, delta_t=1.0 / GEN_FS)
+            for name, x in (("foreground", foreground), ("background", background))}
+    del foreground, background
+    score_segments(score, [segs["foreground"]], cfg, trigger_threshold=threshold, device=dev)  # warm
+    n_batches[0] = 0
+    _cuda.reset_counts()
+    res = {name: score_segments(score, [seg], cfg, trigger_threshold=threshold, device=dev)
+           for name, seg in segs.items()}
+    launches, plain, nb = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS), n_batches[0]
+    nl = task.cfg.encoder.n_layers
+    expect = {"attention": nl * nb, "attention_bwd": 0, "ln_gemm": 2 * nl * nb, "fused_mlp": nl * nb, "int8_gemm": 0}
+    ok = launches == expect and not plain and nb > 0
+    fg, bg = res["foreground"], res["background"]
+    finite = all(np.isfinite(r.all_vals).all() and r.n_windows == 3000 for r in res.values())
+    emit("search_generated", card=smi, seconds=GEN_SECONDS, windows={k: r.n_windows for k, r in res.items()},
+         batches=nb, threshold=threshold, launches=launches, expected_launches=expect, plain_calls=plain,
+         strain_seconds_per_second={k: r.throughput_x_realtime for k, r in res.items()},
+         triggers={k: sum(len(v) for v in r.triggers.values()) for k, r in res.items()}, scores_finite=finite,
+         ok=ok and finite)
+    if not (ok and finite):
+        checks.failed.append("search_generated launch counters")
+    bt, bs, _ = get_clusters(bg.triggers)
+    ev = _challenge_stats(np.vstack(get_clusters(fg.triggers)), np.vstack([bt, bs, np.full(len(bt), 0.2)]), inj,
+                          GEN_SECONDS)
+    ok_ev = ev["well_formed"] and ev["counts_agree"]
+    emit("evaluate_generated", background_clusters=int(len(bt)), injections=GEN_INJECTIONS,
+         duration_s=GEN_SECONDS, far_per_month_of_one_background_event=SECONDS_PER_MONTH / GEN_SECONDS,
+         **ev, note="found counts and distances are findings, not gates: the capstone model was trained on other "
+                    "data", ok=ok_ev)
+    if not ev["well_formed"]:
+        checks.failed.append("get_stats (generated search)")
+    if not ev["counts_agree"]:
+        checks.failed.append("get_stats found injections vs plain count (generated search)")
+    emit("generation_phase", wall_s=time.time() - t_phase, waveform_batches={k: v["wall_s_median"]
+                                                                              for k, v in waveforms.items()})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2479,6 +2832,7 @@ def main():
     mel, mel_train = mel_phase(checks, smi)
     eff_train, eff, real = efficiency_phase(checks, smi)
     search_mesh, train_mesh = parallel_phase(checks, smi, bf16_search)
+    search_generated = generation_phase(checks, smi, bf16_search)
     kernels = []
     for name in KERNELS:
         r = records[name]
@@ -2499,7 +2853,8 @@ def main():
                                              "efficiency_train": eff_train.get(name, 0),
                                              "efficiency": eff.get(name, 0), "real_events": real.get(name, 0),
                                              "search_mesh": search_mesh.get(name, 0),
-                                             "train_mesh": train_mesh.get(name, 0)},
+                                             "train_mesh": train_mesh.get(name, 0),
+                                             "search_generated": search_generated.get(name, 0)},
                         **extra})
     if checks.failed:
         print("chip_smoke: FAILED " + ", ".join(checks.failed), file=sys.stderr)

@@ -1,6 +1,8 @@
 """Frequency-domain whitening with PyCBC inverse-spectrum-truncation
-semantics (counterpart of ``gwkit/ops/whiten.py::whiten_estimate``, the
-MLGWSC-1 search whitening).
+semantics (counterpart of ``gwkit/ops/whiten.py``): the MLGWSC-1 search
+whitening with a Welch-estimated PSD (``whiten_estimate``) and bnslib's
+known-PSD whitening (``whiten_psd``), both over the same truncation
+(``inverse_spectrum_truncation``).
 
 f32 numerics as gwkit's: raw strain is O(1e-21) and its PSD O(1e-42), below
 f32's normal range. Whitening is scale-invariant and inverse spectrum
@@ -31,6 +33,30 @@ def _normalize_psd(psd) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
         pos.sum(dim=-1, keepdim=True), min=1)
     c = torch.clamp(c, min=1e-38)
     return psd / c, c
+
+
+def inverse_spectrum_truncation(psd, max_filter_len: int, low_frequency_cutoff: Optional[float] = None,
+                                delta_f: float = 1.0, trunc_method: Optional[str] = "hann") -> torch.Tensor:
+    """Smooth a PSD by truncating its inverse-ASD impulse response in time
+    (pycbc.psd.inverse_spectrum_truncation): zero the inverse ASD at DC,
+    Nyquist and below the cutoff; irfft; keep max_filter_len samples
+    (hann-tapered) split across the start and end; rfft; 1/|.|^2.
+
+    Normalized internally (the truncation is 1-homogeneous) and scaled back,
+    so pass a PSD whose scale float32 represents, or use the whiten_*
+    functions, which keep everything normalized. A host numpy PSD is
+    truncated on the CPU; a tensor on its own device.
+    """
+    core, c = _normalize_psd(psd)
+    return _ist_core(core, max_filter_len, low_frequency_cutoff, delta_f, trunc_method) * c
+
+
+def _sqrt_scale(c):
+    """sqrt of the PSD scale, in f64 when c is a host float (1e-42 is not
+    f32-representable, its square root 1e-21 is)."""
+    if isinstance(c, float):
+        return np.float32(np.sqrt(c))
+    return torch.sqrt(c)
 
 
 def _robust_rms(x: torch.Tensor) -> torch.Tensor:
@@ -101,8 +127,7 @@ def whiten_estimate(
             psd = np.interp(np.arange(flen) * delta_f, grid_old, psd)
         core, c_phys = _normalize_psd(psd)
         core = core.to(x.device)
-        sqrt_c = np.float32(np.sqrt(c_phys)) if isinstance(c_phys, float) else torch.sqrt(c_phys)
-        inv_scale = rms / sqrt_c
+        inv_scale = rms / _sqrt_scale(c_phys)
     max_filter_len = int(max_filter_duration * sample_rate)
     core = _ist_core(core, max_filter_len, low_frequency_cutoff, delta_f, "hann")
     inv_amp = torch.sqrt(1.0 / core) * inv_scale
@@ -110,3 +135,26 @@ def whiten_estimate(
     if remove_corrupted:
         white = white[..., max_filter_len // 2: n - max_filter_len // 2]
     return (white, unprocessed) if return_psd else white
+
+
+def whiten_psd(strain: torch.Tensor, psd, delta_t: float, low_freq_cutoff: float = 20.0,
+               max_filter_duration: float = 4.0) -> torch.Tensor:
+    """bnslib known-PSD whitening, batched over (..., N).
+
+    The PSD (one-sided, len N//2+1, matching delta_f; a tensor or a host
+    numpy array) is truncated, the strain spectrum is zeroed below the
+    cutoff and at Nyquist, divided by sqrt(PSD), and max_filter_len samples
+    are cropped from both ends."""
+    n = strain.shape[-1]
+    delta_f = 1.0 / (n * delta_t)
+    max_filter_len = int(max_filter_duration * (1.0 / delta_t))
+    core, c = _normalize_psd(psd)
+    core = _ist_core(core.to(strain.device), max_filter_len, low_freq_cutoff, delta_f, "hann")
+    kmin = int(low_freq_cutoff / delta_f)
+    strain_f = torch.fft.rfft(strain.float(), dim=-1)
+    inv_amp = torch.sqrt(1.0 / core) / _sqrt_scale(c)
+    k = torch.arange(n // 2 + 1, device=strain.device)
+    mask = (k >= kmin) & (k != n // 2)
+    strain_f = torch.where(mask, strain_f * inv_amp, torch.zeros_like(strain_f))
+    white = torch.fft.irfft(strain_f, n, dim=-1).to(strain.dtype)
+    return white[..., max_filter_len: n - max_filter_len]

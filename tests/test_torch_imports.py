@@ -43,7 +43,9 @@ def test_every_module_imports_with_jax_gwkit_and_hdf5_blocked():
                  "evaluation.efficiency", "evaluation.stream", "search.bulk", "search.realevents",
                  "cli.train_efficiency", "cli.calculate_efficiencies", "cli.evaluate_stream", "cli.real_events",
                  "cli.preprocess",  # and the efficiency test's
-                 "native.hostio", "parallel.mesh", "parallel.distributed"):  # and the parallel layer's
+                 "native.hostio", "parallel.mesh", "parallel.distributed",  # and the parallel layer's
+                 "ops.snr", "ops.psd", "ops.whiten", "data.noise", "data.detector", "data.waveforms",
+                 "data.imrphenomd", "data.imrphenomp", "data.higher_modes", "data.precession_ode"):  # data generation's
         assert os.path.isfile(os.path.join(ROOT, "gwkit_torch", *name.split(".")) + ".py"), name
 
 
@@ -170,6 +172,19 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         evaluate_stream.main(["--injection-file", "inj.hdf"])
     with pytest.raises(FileNotFoundError):
         preprocess.main(["events", str(tmp_path / "missing.hdf"), str(tmp_path / "w.hdf")])
+    # data generation: the waveform synthesis and both noise generators
+    from gwkit_torch.data.noise import NoiseGenerator, WhiteNoiseGenerator
+    from gwkit_torch.data.waveforms import td_polarizations
+
+    params = {"mass1": np.array([30.0]), "mass2": np.array([20.0]), "distance": np.array([400.0])}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        td_polarizations(params, 1.0, 512.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NoiseGenerator()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WhiteNoiseGenerator()
+    assert td_polarizations(params, 1.0, 512.0, device="cpu")[0].shape == (1, 512)
+    assert NoiseGenerator(sample_rate=512.0, device="cpu").get(1, 1.0).device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")
 
 
