@@ -146,10 +146,35 @@ Phases, each printing one JSON line:
              second noise draw (background): exactly 4 A, 8 B and 4 C a
              batch, no plain call, get_stats under phase 4c's checks, the
              found count and sensitive distances printed;
+  10 pipeline data generation's pipeline on the card, through
+             gwkit_torch.data.generate and glitch: (a) challenge dataset 3,
+             one hour (the first default O3a segment, 7,372,800 samples in
+             15 chunks of 2^19, two batched calls a detector, a PSD variant
+             a detector, about 147 imrphenomxphm injections at gwkit's
+             inject_batch 64 and wave_duration 64) in memory: the injection
+             table and PSD keys bit-equal to the CPU's, each background's
+             Welch PSD against its target (median ratio in [0.9, 1.1] over
+             30-900 Hz), fg - bg zero exactly outside the injections'
+             windows and non-zero in each, strain-s/s and peak memory; (b)
+             datasets 1 and 3 at 600 s on the card and the CPU from one
+             seed: table and PSD keys bit for bit, fg - bg within 2e-3 of
+             its max; (c) phase 4's bf16 task and threshold on (a)'s
+             foreground and background: 4 A, 8 B, 4 C a batch, no plain
+             call, get_stats against the generated table under phase 4c's
+             checks, found count and sensitive distances printed; (d) the
+             training corpus's arrays (1024 + 256 windows, imrphenomd, 16 s
+             waves) against the CPU path: each waveform window within 2e-3
+             of its max, the whitened noise's std within 5% (other draws),
+             waveforms/s and noise windows/s; (e) 8 steps of phase 5's
+             recipe on an InjectionDataset of (d): 8 A, 4 D, 8 B, 4 C a
+             step, no plain call, finite losses, samples/s; (f) the
+             synthetic glitch corpus and the realistic one (64 a class) on
+             the card under gwkit's calibration gate, samples/s;
   kernels    one line per the kernel table (times, bound, launches, by
              path: search, search_stream, search_int8, train, mel,
              mel_train, efficiency_train, efficiency, real_events,
-             search_mesh, train_mesh, search_generated); kernel
+             search_mesh, train_mesh, search_generated, search_pipeline,
+             train_pipeline); kernel
              E's times, bound and int_mm times are the sums of its four
              launches a layer, kernel B's of its two;
 then the card's name and power limit, and the result line last.
@@ -2807,6 +2832,316 @@ def generation_phase(checks, smi, bf16):
     return launches
 
 
+PIPE_SECONDS, PIPE_SHORT = 3600.0, 600.0  # (a) one hour of ds3; (b) ds1 and ds3 card vs CPU
+PIPE_SEED = 7
+PIPE_WAVE_TOL = 2e-3   # card vs CPU, of the max: fg - bg (b) and each corpus waveform window (d)
+PIPE_NOISE_STD = 0.05  # whitened-noise std card vs CPU (other draws), relative
+PIPE_TRAIN_STEPS, PIPE_GLITCH_PER_CLASS = 8, 64
+
+
+def _pipeline_spans(seconds):
+    from gwkit_torch.data.segments import default_o3a_segments, restrict_segments
+
+    return restrict_segments(default_o3a_segments(), seconds)[:1]
+
+
+def _injection_windows(synth, si):
+    """[s, e) sample ranges of segment si's injections, as _add_injections places them."""
+    start, n = synth.spans[si][0], synth.n_samples(si)
+    n_wave = int(synth.wave_duration * synth.sample_rate)
+    tc = synth.params["tc"]
+    out = []
+    for t in tc[(tc >= start) & (tc < start + n / synth.sample_rate)]:
+        s = int(round((t - 0.75 * synth.wave_duration - start) * synth.sample_rate))
+        if max(s, 0) < min(s + n_wave, n):
+            out.append((max(s, 0), min(s + n_wave, n)))
+    return out
+
+
+def _pipeline_challenge(checks, smi, dev):
+    """(a): dataset 3, one hour, in memory on the card: the table against the
+    CPU's, the Welch PSD of each background against its target, fg - bg zero
+    exactly outside the injections' windows and non-zero inside each.
+    Returns the synthesis and the segment."""
+    from gwkit_torch.data.generate import N_CHUNK, ChallengePSDSelector, ChallengeSynthesis
+    from gwkit_torch.ops.psd import welch_psd
+
+    kw = dict(duration=PIPE_SECONDS, seed=PIPE_SEED, dataset=3, segments=_pipeline_spans(PIPE_SECONDS))
+    ChallengeSynthesis(**{**kw, "duration": 300.0, "segments": _pipeline_spans(300.0)}, device=dev).segment(0)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    synth = ChallengeSynthesis(**kw, device=dev)
+    start, bg, fg = synth.segment(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    cpu = ChallengeSynthesis(**kw, device="cpu")  # the host's table and PSD choices, no segment made
+    table_equal = sorted(cpu.params) == sorted(synth.params) and all(
+        np.array_equal(cpu.params[k], synth.params[k]) for k in cpu.params)
+    keys_equal = [cpu.psd_key(0, d) for d in synth.detectors] == [synth.psd_key(0, d) for d in synth.detectors]
+    n = synth.n_samples(0)
+    ratios = {}
+    for det in synth.detectors:
+        key = synth.psd_key(0, det)
+        target = ChallengePSDSelector(3, PIPE_SEED, synth.detectors).psd_array(
+            key, N_CHUNK // 2 + 1, synth.sample_rate / N_CHUNK, synth.f_lower - 2.0)
+        c = float(target[target > 0].mean())
+        est = welch_psd((bg[det] / np.sqrt(c))[None], 1.0 / synth.sample_rate, segment_duration=4.0)[0].cpu().numpy()
+        f_est = np.arange(len(est)) * 0.25
+        band = (f_est >= 30.0) & (f_est <= 900.0)
+        f = np.arange(len(target)) * synth.sample_rate / N_CHUNK
+        ratios[det] = float(np.median(est[band] / (np.interp(f_est, f, target) / c)[band]))
+    windows = _injection_windows(synth, 0)
+    inside = torch.zeros(n, dtype=torch.bool, device=dev)
+    for s, e in windows:
+        inside[s:e] = True
+    outside_zero, each_nonzero = True, True
+    for det in synth.detectors:
+        d = fg[det] - bg[det]
+        outside_zero &= bool((d[~inside] == 0).all())
+        each_nonzero &= all(bool((d[s:e] != 0).any()) for s, e in windows)
+    finite = all(bool(torch.isfinite(x[det]).all()) for x in (bg, fg) for det in synth.detectors)
+    ok_psd = all(0.9 <= r <= 1.1 for r in ratios.values())
+    ok = table_equal and keys_equal and ok_psd and outside_zero and each_nonzero and finite and len(windows) > 100
+    emit("pipeline_challenge", card=smi, dataset=3, seconds=n / synth.sample_rate, samples=n,
+         chunks=-(-n // N_CHUNK), injections=len(synth.params["tc"]), injection_windows=len(windows),
+         psd_keys={d: list(synth.psd_key(0, d)) for d in synth.detectors}, table_equal_to_cpu=table_equal,
+         psd_keys_equal_to_cpu=keys_equal, welch_median_ratio_30_900hz=ratios,
+         fg_minus_bg_zero_outside_windows=outside_zero, fg_minus_bg_nonzero_in_each_window=each_nonzero,
+         wall_s=wall, strain_seconds_per_second=len(synth.detectors) * n / synth.sample_rate / wall,
+         peak_mem_gb=peak / 1e9, ok=ok)
+    if not ok:
+        checks.failed.append("pipeline challenge (dataset 3, one hour)")
+    return synth, start, bg, fg
+
+
+def _pipeline_card_vs_cpu(checks, dev):
+    """(b): datasets 1 and 3 at PIPE_SHORT seconds on the card and on the
+    CPU from one seed: the table and PSD keys bit for bit, fg - bg within
+    PIPE_WAVE_TOL of its max (the noise draws are each device's own)."""
+    from gwkit_torch.data.generate import ChallengeSynthesis
+
+    for dataset in (1, 3):
+        kw = dict(duration=PIPE_SHORT, seed=PIPE_SEED, dataset=dataset, segments=_pipeline_spans(PIPE_SHORT))
+        out, walls = {}, {}
+        for name, d in (("card", dev), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            synth = ChallengeSynthesis(**kw, device=d)
+            _, bg, fg = synth.segment(0)
+            out[name] = (synth, {k: (fg[k] - bg[k]).cpu() for k in bg})
+            walls[name] = time.perf_counter() - t0
+        (card, dc), (cpu, dp) = out["card"], out["cpu"]
+        table = all(np.array_equal(card.params[k], cpu.params[k]) for k in cpu.params) and \
+            sorted(card.params) == sorted(cpu.params)
+        keys = [card.psd_key(0, d) for d in card.detectors] == [cpu.psd_key(0, d) for d in cpu.detectors]
+        err = {k: float((dc[k] - dp[k]).abs().max() / dp[k].abs().max()) for k in dp}
+        ok = table and keys and all(e <= PIPE_WAVE_TOL for e in err.values())
+        emit("pipeline_card_vs_cpu", dataset=dataset, seconds=PIPE_SHORT, injections=len(cpu.params["tc"]),
+             table_bit_equal=table, psd_keys_equal=keys, fg_minus_bg_max_err_of_max=err, tol=PIPE_WAVE_TOL,
+             card_wall_s=walls["card"], cpu_wall_s=walls["cpu"], ok=ok)
+        if not ok:
+            checks.failed.append(f"pipeline dataset {dataset} card vs CPU")
+
+
+def _pipeline_search(checks, smi, bf16, synth, start, bg, fg, dev):
+    """(c): phase 4's bf16 task and threshold on the hour's foreground and
+    background: launches a batch, get_stats against the generated table."""
+    from gwkit_torch.search.cluster import SECONDS_PER_MONTH, get_clusters
+    from gwkit_torch.search.engine import score_segments
+    from gwkit_torch.search.slicer import Segment, SlicerConfig
+
+    task, threshold = _capstone_search_task(), bf16["threshold"]
+    cfg = SlicerConfig(batch_size=128)
+    n_batches = [0]
+
+    def score(windows):
+        n_batches[0] += 1
+        return task.score(windows)
+
+    dets = synth.detectors
+    segs = {name: Segment(key=f"pipeline_{name}", strain=torch.stack([x[d] for d in dets]).cpu().numpy(),
+                          start_time=start, delta_t=1.0 / synth.sample_rate)
+            for name, x in (("foreground", fg), ("background", bg))}
+    warm = Segment(key="warm", strain=segs["foreground"].strain[:, :int(300 * synth.sample_rate)], start_time=start,
+                   delta_t=1.0 / synth.sample_rate)
+    score_segments(score, [warm], cfg, trigger_threshold=threshold, device=dev)
+    n_batches[0] = 0
+    _cuda.reset_counts()
+    res = {name: score_segments(score, [seg], cfg, trigger_threshold=threshold, device=dev)
+           for name, seg in segs.items()}
+    launches, plain, nb = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS), n_batches[0]
+    nl = task.cfg.encoder.n_layers
+    expect = {"attention": nl * nb, "attention_bwd": 0, "ln_gemm": 2 * nl * nb, "fused_mlp": nl * nb, "int8_gemm": 0}
+    finite = all(np.isfinite(r.all_vals).all() for r in res.values())
+    ok = launches == expect and not plain and nb > 0 and finite
+    emit("search_pipeline", card=smi, seconds=PIPE_SECONDS, windows={k: r.n_windows for k, r in res.items()},
+         batches=nb, threshold=threshold, launches=launches, expected_launches=expect, plain_calls=plain,
+         strain_seconds_per_second={k: r.throughput_x_realtime for k, r in res.items()},
+         wall_s={k: r.wall_seconds for k, r in res.items()},
+         triggers={k: sum(len(v) for v in r.triggers.values()) for k, r in res.items()}, scores_finite=finite,
+         ok=ok)
+    if not ok:
+        checks.failed.append("search_pipeline launch counters")
+    bt, bs, _ = get_clusters(res["background"].triggers)
+    p = synth.params
+    inj = {"tc": p["tc"], "distance": p["distance"], "mass1": p["mass1"], "mass2": p["mass2"]}
+    ev = _challenge_stats(np.vstack(get_clusters(res["foreground"].triggers)),
+                          np.vstack([bt, bs, np.full(len(bt), 0.2)]), inj, PIPE_SECONDS)
+    ok_ev = ev["well_formed"] and ev["counts_agree"]
+    emit("evaluate_pipeline", background_clusters=int(len(bt)), injections=len(p["tc"]), duration_s=PIPE_SECONDS,
+         far_per_month_of_one_background_event=SECONDS_PER_MONTH / PIPE_SECONDS, **ev,
+         note="found counts and distances are findings, not gates: the capstone model was trained on other data",
+         ok=ok_ev)
+    if not ev["well_formed"]:
+        checks.failed.append("get_stats (pipeline search)")
+    if not ev["counts_agree"]:
+        checks.failed.append("get_stats found injections vs plain count (pipeline search)")
+    return launches
+
+
+def _pipeline_corpus(checks, smi, dev):
+    """(d): the training corpus's arrays on the card (1024 + 256 windows,
+    imrphenomd, 16 s waves) against the CPU path: each waveform window
+    within PIPE_WAVE_TOL of its max, the whitened noise's std within
+    PIPE_NOISE_STD (other draws); then 512 waveforms and 1024 noise windows
+    timed, and the noise alone."""
+    from gwkit_torch.data import generate as G
+
+    kw = dict(n_train=1024, n_valid=256, seed=PIPE_SEED, wave_duration=16.0)
+    G.synthesize_training_set(n_train=16, n_valid=0, seed=PIPE_SEED, wave_duration=16.0, device=dev)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = G.synthesize_training_set(**kw, device=dev)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = G.synthesize_training_set(**kw, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    errs, stds = [], {}
+    for split in card:
+        (wk, nk), (wc, nc) = card[split], cpu[split]
+        assert wk.shape == wc.shape and nk.shape == nc.shape
+        errs.append((np.abs(wk - wc).max(axis=(1, 2)) / np.abs(wc).max(axis=(1, 2))))
+        stds[split] = {"card": float(nk.std()), "cpu": float(nc.std())}
+    err = np.concatenate(errs)
+    finite = all(np.isfinite(a).all() for pair in card.values() for a in pair)
+    std_ok = all(abs(s["card"] / s["cpu"] - 1.0) <= PIPE_NOISE_STD for s in stds.values())
+    ok = finite and float(err.max()) <= PIPE_WAVE_TOL and std_ok
+
+    # 512 waveforms with 1024 noise windows, and the noise alone (median of 3 each)
+    def timed(fraction):
+        fn = lambda: G.synthesize_training_set(n_train=1024, n_valid=0, waveform_fraction=fraction, seed=PIPE_SEED,
+                                               wave_duration=16.0, device=dev)
+        fn()
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    times = {"both": timed(0.5), "noise": timed(0.0)}
+    times["waves"] = times["both"] - times["noise"]
+    emit("pipeline_corpus", card=smi, n_train=1024, n_valid=256, approximant="imrphenomd", wave_seconds=16.0,
+         waveforms=int(sum(len(v[0]) for v in card.values())), noises=int(sum(len(v[1]) for v in card.values())),
+         wall_s=wall, cpu_wall_s=cpu_wall, waveform_max_err_of_max=float(err.max()),
+         waveform_median_err_of_max=float(np.median(err)), tol=PIPE_WAVE_TOL, whitened_noise_std=stds,
+         std_tol=PIPE_NOISE_STD, waveforms_per_second=512 / times["waves"],
+         noise_windows_per_second=1024 / times["noise"],
+         timed_s={"512_waveforms_and_1024_noises": times["both"], "1024_noises": times["noise"]}, ok=ok)
+    if not ok:
+        checks.failed.append("pipeline training corpus card vs CPU")
+    return card
+
+
+def _pipeline_train(checks, smi, corpus, dev):
+    """(e): phase 5's recipe on an InjectionDataset of (d)'s training split:
+    a warm step, then PIPE_TRAIN_STEPS steps with launch counters."""
+    from gwkit_torch.cli.inference import _load_gwkit_encoder
+    from gwkit_torch.data.datasets import InjectionDataset
+    from gwkit_torch.io import from_gwkit_numpy
+    from gwkit_torch.models.adapters import AdapterConfig
+    from gwkit_torch.models.qadapter import QAdapterConfig
+    from gwkit_torch.models.whisper import config_for
+    from gwkit_torch.train.tasks import build_mlgwsc
+    from gwkit_torch.train.trainer import TrainConfig, Trainer
+
+    frames, batch = 512, 64
+    enc_cfg = config_for("tiny", compute_dtype=torch.bfloat16, fused_block=True, gelu_approx=True,
+                         max_positions=frames // 2)
+    encoder = from_gwkit_numpy(encoder=_load_gwkit_encoder(f"{CAPSTONE}/encoder_pretrained.npz", "tiny",
+                                                           enc_cfg))["encoder"]
+    task = build_mlgwsc(enc_cfg, QAdapterConfig(median_stride=8, target_shape=(80, frames)), {"encoder": encoder},
+                        usr=False, device=dev, acfg=AdapterConfig(r=8, alpha=32, use_dora=True, targets="qkvo"), seed=0)
+    waves, noises = corpus["training"]
+    train = InjectionDataset(noises, waves, (7.0, 20.0), dev)
+    steps = list(train.batches(torch.Generator().manual_seed(9), batch))[:PIPE_TRAIN_STEPS + 1]
+    cfg = TrainConfig(learning_rate=3e-4, clip_norm=100.0, epochs=1, batch_size=batch, optimizer="adam", seed=0)
+    trainer = Trainer(task.loss_fn, task.trainable, task.frozen, cfg)
+    losses = [trainer.train_step(steps[0])[0]]
+    torch.cuda.synchronize()
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    losses += [trainer.train_step(b)[0] for b in steps[1:]]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+    losses = torch.stack(losses).float().cpu().numpy()
+    expect = {k: v * PIPE_TRAIN_STEPS for k, v in ONE_STEP.items()}
+    ok = launches == expect and not plain and bool(np.isfinite(losses).all())
+    emit("train_pipeline", card=smi, recipe="phase 5's: capstone encoder frozen, DoRA r=8 a=32 qkvo, batch 64, bf16, "
+         "Adam 3e-4, clip 100", dataset={"noises": list(noises.shape), "waveforms": list(waves.shape),
+                                        "snr_range": [7.0, 20.0]},
+         steps=PIPE_TRAIN_STEPS, losses=losses.tolist(), launches=launches, expected_launches=expect,
+         plain_calls=plain, wall_s=wall, samples_per_s=batch * PIPE_TRAIN_STEPS / wall, ok=ok)
+    if not ok:
+        checks.failed.append("train_pipeline")
+    return launches
+
+
+def _pipeline_glitch(checks, smi, dev):
+    """(f): the synthetic corpus (numpy) bit-equal run to run, and the
+    realistic corpus on the card under gwkit's calibration gate."""
+    from gwkit_torch.data.glitch import realistic_glitch_dataset, synthetic_glitch_dataset
+
+    a, b = synthetic_glitch_dataset(8, seed=PIPE_SEED), synthetic_glitch_dataset(8, seed=PIPE_SEED)
+    synth_equal = all(np.array_equal(x, y) for x, y in zip(a, b))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, y, (ach, tgt) = realistic_glitch_dataset(PIPE_GLITCH_PER_CLASS, seed=PIPE_SEED, return_achieved=True,
+                                                device=dev)
+    wall = time.perf_counter() - t0
+    ratio = ach[tgt > 0] / tgt[tgt > 0]
+    med, spread = float(np.median(ratio)), float(np.quantile(ratio, 0.9) / np.quantile(ratio, 0.1))
+    ok = synth_equal and 0.5 < med < 2.0 and spread < 2.0 and bool(np.isfinite(x).all()) and \
+        x.shape == (11 * PIPE_GLITCH_PER_CLASS, 2048)
+    emit("pipeline_glitch", card=smi, synthetic_shape=list(a[0].shape), synthetic_bit_equal=synth_equal,
+         realistic_shape=list(x.shape), achieved_over_target_median=med, spread_90_10=spread,
+         gate={"median": [0.5, 2.0], "spread_below": 2.0}, wall_s=wall, samples_per_s=len(x) / wall, ok=ok)
+    if not ok:
+        checks.failed.append("pipeline glitch corpora")
+
+
+def pipeline_phase(checks, smi, bf16):
+    """Phase 10: data generation's pipeline on the card, (a)-(f). Returns the
+    search's and the training's launches."""
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    synth, start, bg, fg = _pipeline_challenge(checks, smi, dev)
+    _pipeline_card_vs_cpu(checks, dev)
+    search = _pipeline_search(checks, smi, bf16, synth, start, bg, fg, dev)
+    del bg, fg
+    torch.cuda.empty_cache()
+    corpus = _pipeline_corpus(checks, smi, dev)
+    train = _pipeline_train(checks, smi, corpus, dev)
+    _pipeline_glitch(checks, smi, dev)
+    emit("pipeline_phase", wall_s=time.time() - t_phase)
+    return search, train
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2833,6 +3168,7 @@ def main():
     eff_train, eff, real = efficiency_phase(checks, smi)
     search_mesh, train_mesh = parallel_phase(checks, smi, bf16_search)
     search_generated = generation_phase(checks, smi, bf16_search)
+    search_pipeline, train_pipeline = pipeline_phase(checks, smi, bf16_search)
     kernels = []
     for name in KERNELS:
         r = records[name]
@@ -2854,7 +3190,9 @@ def main():
                                              "efficiency": eff.get(name, 0), "real_events": real.get(name, 0),
                                              "search_mesh": search_mesh.get(name, 0),
                                              "train_mesh": train_mesh.get(name, 0),
-                                             "search_generated": search_generated.get(name, 0)},
+                                             "search_generated": search_generated.get(name, 0),
+                                             "search_pipeline": search_pipeline.get(name, 0),
+                                             "train_pipeline": train_pipeline.get(name, 0)},
                         **extra})
     if checks.failed:
         print("chip_smoke: FAILED " + ", ".join(checks.failed), file=sys.stderr)

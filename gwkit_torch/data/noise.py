@@ -11,10 +11,17 @@ reproduce, and a torch seed gives the same stream only on the same device
 type: seeded outputs agree run to run per device type, not across packages
 or between the card and the CPU. ``colored_noise_core`` takes the two draws
 explicitly, so the same draws give the same noise anywhere.
+
+Data generation (``gwkit_torch/data/generate.py``, the realistic glitch
+corpus) takes every draw through :func:`seeded_draws`: one generator per
+stream, an integer tuple such as (seed, segment, detector, chunk), seeded
+through ``np.random.SeedSequence``. A stream's draws do not depend on what
+else is drawn, batched or skipped, so a resumed run needs no replay, and
+tests substitute this one function to feed both packages the same draws.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +42,34 @@ def colored_noise_core(a: torch.Tensor, b: torch.Tensor, n: int, delta_t: float,
     z[..., 0] = 0.0
     z[..., -1] = a[..., -1] * torch.sqrt(psd[..., -1] * n / (2.0 * delta_t))
     return torch.fft.irfft(z, n, dim=-1)
+
+
+# the second element of every data-generation stream, so that no two uses of
+# one seed share draws
+STREAM_CHALLENGE, STREAM_REAL_NOISE, STREAM_TRAINING, STREAM_GLITCH = 0, 1, 2, 3
+
+
+def seeded_draws(stream: Sequence[int], shape, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two standard-normal draws (a, b) of ``shape`` of one noise
+    realization, from a ``torch.Generator`` on ``device`` seeded by the
+    integer tuple ``stream`` through ``np.random.SeedSequence``."""
+    seed = int(np.random.SeedSequence([int(s) for s in stream]).generate_state(1, np.uint64)[0] >> np.uint64(1))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn(shape, generator=gen, device=device)
+    b = torch.randn(shape, generator=gen, device=device)
+    return a, b
+
+
+def seeded_colored_noise(streams: Sequence[Sequence[int]], n: int, delta_t: float,
+                         psd: torch.Tensor) -> torch.Tensor:
+    """(len(streams), ..., N) noise, realization i from stream i's
+    :func:`seeded_draws`; ``psd`` (..., N//2+1) on the target device is
+    shared by every realization."""
+    shape = psd.shape[:-1] + (n // 2 + 1,)
+    draws = [seeded_draws(s, shape, psd.device) for s in streams]
+    a = torch.stack([d[0] for d in draws])
+    b = torch.stack([d[1] for d in draws])
+    return colored_noise_core(a, b, n, delta_t, psd)
 
 
 def colored_noise(generator: torch.Generator, n: int, delta_t: float, psd: torch.Tensor) -> torch.Tensor:

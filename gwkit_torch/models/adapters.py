@@ -8,6 +8,7 @@ in gwkit. The encoder's base weights stay outside (frozen by construction).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -18,7 +19,7 @@ import torch
 from gwkit_torch.io import _HF_PROJ, AdapterConfig, to_gwkit_numpy, write_safetensors
 from gwkit_torch.models.whisper import WhisperConfig
 
-__all__ = ["AdapterConfig", "init_adapters", "n_trainable", "export_peft_dir"]
+__all__ = ["AdapterConfig", "init_adapters", "empty_adapters", "n_trainable", "export_peft_dir"]
 
 
 def init_adapters(cfg: WhisperConfig, acfg: AdapterConfig, encoder_params: dict,
@@ -40,6 +41,15 @@ def init_adapters(cfg: WhisperConfig, acfg: AdapterConfig, encoder_params: dict,
                 entry["m"] = w0.norm(dim=0)
             layer[proj] = entry
     return layers
+
+
+def empty_adapters(cfg: WhisperConfig, acfg: AdapterConfig, encoder_params: dict) -> List[dict]:
+    """Adapters for all four projections, whatever ``acfg.targets`` says,
+    initialized as :func:`init_adapters` does (B = 0, so each is the
+    identity) from a generator seeded 0: a uniform tree across q/k/v/o.
+    Usually init_adapters is what you want."""
+    return init_adapters(cfg, dataclasses.replace(acfg, targets="qkvo"), encoder_params,
+                         torch.Generator().manual_seed(0))
 
 
 def n_trainable(adapters: List[dict]) -> int:

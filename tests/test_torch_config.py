@@ -19,6 +19,8 @@ ARGV = {
                  "--background-events", "b.hdf", "--output-file", "stats.hdf"],
     "evaluate_classifier": ["-d", "x.hdf", "--checkpoint", "b.npz", "-o", "out", "--task", "glitch"],
     "evaluate_stream": ["--injection-file", "i.hdf", "--data-dir", "scores"],
+    "generate_data": ["challenge", "-d", "3", "-f", "fg.hdf", "-b", "bg.hdf", "-i", "inj.hdf", "--duration", "600",
+                      "--psd-file", "H1=h1.txt", "--psd-file", "L1=l1.txt", "--approximant", "imrphenomxphm-twospin"],
     "inference": ["in.hdf", "out.hdf", "--lora-weights", "l", "--dense-weights", "d", "--adapter-weights", "a",
                   "--target-shape", "80", "512", "--stream", "1", "--shard-dir", "shards"],
     "preprocess": ["resample", "in.hdf", "out.hdf"],
@@ -42,7 +44,7 @@ def _dump(package: str, args, cli: str, workdir, monkeypatch) -> str:
     os.makedirs(workdir, exist_ok=True)
     monkeypatch.chdir(workdir)
     output = {"calculate_efficiencies": "output_dir", "evaluate": "output_file", "evaluate_classifier": "output_dir",
-              "evaluate_stream": "data_dir", "inference": "outputfile", "preprocess": "output", "real_events": "output",
+              "evaluate_stream": "data_dir", "generate_data": "output_foreground_file", "inference": "outputfile", "preprocess": "output", "real_events": "output",
               "serve": "socket", "train": "output", "train_efficiency": "output", "train_glitch": "output",
               "train_mlgwsc": "output_training"}[cli]
     path = PACKAGES[package][1].dump_config(args, getattr(args, output))

@@ -45,7 +45,9 @@ def test_every_module_imports_with_jax_gwkit_and_hdf5_blocked():
                  "cli.preprocess",  # and the efficiency test's
                  "native.hostio", "parallel.mesh", "parallel.distributed",  # and the parallel layer's
                  "ops.snr", "ops.psd", "ops.whiten", "data.noise", "data.detector", "data.waveforms",
-                 "data.imrphenomd", "data.imrphenomp", "data.higher_modes", "data.precession_ode"):  # data generation's
+                 "data.imrphenomd", "data.imrphenomp", "data.higher_modes", "data.precession_ode",  # data generation's
+                 "data.segments", "data.population", "data.generate", "data.fetch", "utils.hdf5",
+                 "cli.generate_data"):  # and its pipeline
         assert os.path.isfile(os.path.join(ROOT, "gwkit_torch", *name.split(".")) + ".py"), name
 
 
@@ -184,6 +186,28 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         WhiteNoiseGenerator()
     assert td_polarizations(params, 1.0, 512.0, device="cpu")[0].shape == (1, 512)
+    # data generation's pipeline: the challenge files, the corpus, the glitch corpora, the CLI
+    from gwkit_torch.cli import generate_data
+    from gwkit_torch.data.generate import (ChallengeSynthesis, generate_challenge_data, generate_training_set,
+                                           synthesize_training_set)
+    from gwkit_torch.data.glitch import preprocess_glitch_strain, realistic_glitch_dataset
+
+    files = [str(tmp_path / n) for n in ("fg.hdf", "bg.hdf", "inj.hdf")]
+    for call in (lambda: generate_challenge_data(*files, duration=100.0),
+                 lambda: ChallengeSynthesis(duration=100.0),
+                 lambda: generate_training_set(str(tmp_path / "train.hdf"), n_train=2, n_valid=0),
+                 lambda: synthesize_training_set(n_train=2, n_valid=0),
+                 lambda: realistic_glitch_dataset(1),
+                 lambda: preprocess_glitch_strain(np.zeros((1, 4096), np.float32))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    for args in (["challenge", "-f", files[0], "-b", files[1], "-i", files[2], "--duration", "100"],
+                 ["training", "-o", str(tmp_path / "train.hdf")],
+                 ["glitch", "-o", str(tmp_path / "glitch.hdf")]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            generate_data.main(args)
+    assert not any(os.path.exists(f) for f in files + [str(tmp_path / "train.hdf"), str(tmp_path / "glitch.hdf")])
+    assert ChallengeSynthesis(duration=100.0, device="cpu").segment(0)[1]["H1"].device.type == "cpu"
     assert NoiseGenerator(sample_rate=512.0, device="cpu").get(1, 1.0).device.type == "cpu"
     assert resolve_device("cpu") == torch.device("cpu")
 

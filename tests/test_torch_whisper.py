@@ -57,3 +57,28 @@ def test_positions_and_param_layout():
     p = port_init(CFG, torch.Generator().manual_seed(0))
     assert len(p["layers"]) == 2 and tuple(p["layers"][0]["fc1"]["w"].shape) == (64, 128)
     assert "b" not in p["layers"][0]["k"]
+
+
+@pytest.mark.parametrize("targets", ["qv", "qkvo"])
+def test_empty_adapters_match_gwkit(weights, targets):
+    """``empty_adapters``: all four projections whatever the targets, B = 0
+    (each the identity), m = W0's column norms, gwkit's scaling; A from
+    U(+-1/sqrt(d_in)), drawn by each package's own generator."""
+    from gwkit.models.adapters import empty_adapters as gw_empty
+    from gwkit_torch.models.adapters import AdapterConfig as PortAdapterConfig
+    from gwkit_torch.models.adapters import empty_adapters
+
+    params, _, port = weights
+    want = from_gwkit_numpy(adapters=jax.tree.map(np.asarray, gw_empty(
+        GW_CFG, AdapterConfig(r=4, alpha=8, use_dora=True, targets=targets), params)))["adapters"]
+    got = empty_adapters(CFG, PortAdapterConfig(r=4, alpha=8, use_dora=True, targets=targets), port["encoder"])
+    assert len(got) == len(want) == CFG.n_layers
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w) == ["k", "o", "q", "v"]
+        for proj in w:
+            assert sorted(g[proj]) == sorted(w[proj])
+            assert g[proj]["a"].shape == w[proj]["a"].shape
+            assert float(g[proj]["a"].abs().max()) <= 1.0 / np.sqrt(CFG.d_model)
+            assert not g[proj]["b"].any() and not w[proj]["b"].any()
+            np.testing.assert_allclose(g[proj]["m"].numpy(), w[proj]["m"].numpy(), rtol=1e-6)
+            assert float(g[proj]["scaling"]) == float(w[proj]["scaling"]) == 2.0
