@@ -170,11 +170,27 @@ Phases, each printing one JSON line:
              step, no plain call, finite losses, samples/s; (f) the
              synthetic glitch corpus and the realistic one (64 a class) on
              the card under gwkit's calibration gate, samples/s;
+  11 utils   gwkit_torch.utils.tracing and the Q-scan's time_decimation:
+             (a) trace(logdir) around 2 batches of phase 4's bf16 search
+             inside annotate("search"): the trace file parses as JSON and
+             holds the region; its device events in the region, grouped by
+             _kernel_group, count 8 A, 16 B and 8 C, equal to the launch
+             counters; trace(None) records nothing; the trace's size, the
+             region's device ms by group and the profiled wall printed;
+             (b) qscan at d = 4 on those 256 whitened windows (x 2
+             detectors) at phase 4's plan, card vs CPU in f32 within
+             1e-4, and against d = 1 on the card: every window's
+             spectrogram correlates above 0.98 where gwkit sets that bar,
+             with its 180 Hz burst added at 10x the noise (the noise-only
+             windows' correlation and plane changes printed); then phase
+             4's segment searched with QAdapterConfig(time_decimation=4):
+             4 A, 8 B, 4 C a batch, no plain call; score correlation and
+             trigger Jaccard with phase 4's d = 1 search, strain-s/s;
   kernels    one line per the kernel table (times, bound, launches, by
              path: search, search_stream, search_int8, train, mel,
              mel_train, efficiency_train, efficiency, real_events,
              search_mesh, train_mesh, search_generated, search_pipeline,
-             train_pipeline); kernel
+             train_pipeline, search_decimated); kernel
              E's times, bound and int_mm times are the sums of its four
              launches a layer, kernel B's of its two;
 then the card's name and power limit, and the result line last.
@@ -3142,6 +3158,206 @@ def pipeline_phase(checks, smi, bf16):
     return search, train
 
 
+
+# phase 11: the last of gwkit's surface on the card: the search traced by kernel name (gwkit_torch.utils.tracing)
+# and the Q-scan's time_decimation
+TRACE_BATCHES = 2
+DECIMATION = 4
+# gwkit's bar for the decimated spectrogram (tests/test_qtransform.py::test_qscan_decimated_spectrogram_close),
+# set there on a 180 Hz sine-Gaussian burst (tau 0.05 s) of 10x the noise's amplitude, which this phase adds to
+# the windows it holds to the bar
+DECIMATION_CORR = 0.98
+BURST_OVER_NOISE = 10.0
+
+
+def _row_correlation(a, b):
+    """Pearson correlation of each (F, T) spectrogram of ``a`` with b's."""
+    a, b = a.reshape(a.shape[0], -1).double(), b.reshape(b.shape[0], -1).double()
+    a, b = a - a.mean(dim=1, keepdim=True), b - b.mean(dim=1, keepdim=True)
+    return (a * b).sum(dim=1) / (a.norm(dim=1) * b.norm(dim=1))
+
+
+def _traced_search(checks, smi, task, batches):
+    """(a): trace(logdir) around phase 4's bf16 search of ``batches``
+    inside annotate("search"); the trace's device events in the region, by
+    kernel group, against the launch counters."""
+    from gwkit_torch.utils.tracing import annotate, trace
+
+    with trace(None):
+        untraced = not torch.autograd.profiler._is_profiler_enabled
+    with torch.no_grad(), tempfile.TemporaryDirectory(prefix="gwkit_torch_trace_") as logdir:
+        task.score(batches[0])  # warm
+        torch.cuda.synchronize()
+        _cuda.reset_counts()
+        with trace(logdir):
+            t0 = time.time()
+            with annotate("search"):
+                scores = [task.score(w) for w in batches]
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+        launches, plain = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+        files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+        assert len(files) == 1, files
+        trace_file, trace_bytes = files[0], os.path.getsize(os.path.join(logdir, files[0]))
+        with open(os.path.join(logdir, trace_file)) as f:
+            events = json.load(f)["traceEvents"]
+    region = [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == "search"]
+    assert len(region) == 1, f"{len(region)} 'search' regions in the trace"
+    r0, r1 = region[0]["ts"], region[0]["ts"] + region[0]["dur"]
+    # a device event is in the region when the host call that launched it
+    # (the same correlation id) lies in it
+    corr = lambda e: (e.get("args") or {}).get("correlation")
+    launched = {corr(e): e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and r0 <= e["ts"] <= r1}
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    inside = [e for e in device if corr(e) in launched]
+    ops = [e for e in events if e.get("cat") == "cpu_op" and r0 <= e["ts"] <= r1]
+
+    def launching_op(launch):
+        """The innermost host op (aten::...) around a kernel's launch."""
+        around = [o for o in ops if o["tid"] == launch["tid"] and o["ts"] <= launch["ts"] <= o["ts"] + o["dur"]]
+        return min(around, key=lambda o: o["dur"])["name"] if around else "(no host op)"
+
+    count, ms, by_name, other_by_op = {}, {}, {}, {}
+    for e in inside:
+        g, t = _kernel_group(e["name"]), e.get("dur", 0.0) / 1e3
+        count[g] = count.get(g, 0) + 1
+        ms[g] = ms.get(g, 0.0) + t
+        n, total = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, total + t)
+        if g.startswith("other"):
+            op = launching_op(launched[corr(e)])
+            n, total = other_by_op.get(op, (0, 0.0))
+            other_by_op[op] = (n + 1, total + t)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:16]
+    nl, nb = task.cfg.encoder.n_layers, len(batches)
+    expect = {"attention": nl * nb, "attention_bwd": 0, "ln_gemm": 2 * nl * nb, "fused_mlp": nl * nb, "int8_gemm": 0}
+    traced = {"attention": count.get("attention_kernel", 0), "ln_gemm": count.get("ln_gemm_kernel", 0),
+              "fused_mlp": count.get("fused_mlp_kernel", 0)}
+    ok = (untraced and launches == expect and not plain and traced == {k: expect[k] for k in traced}
+          and all(torch.isfinite(s).all() for s in scores))
+    device_ms = sum(ms.values())
+    emit("search_traced", card=smi, batches=nb, trace_file=trace_file, trace_bytes=trace_bytes,
+         trace_events=len(events), region_host_ms=region[0]["dur"] / 1e3, wall_ms_profiled=wall_ms,
+         device_events_in_region=len(inside), device_events_in_trace=len(device),
+         device_ms_in_region=device_ms, device_busy_share=device_ms / wall_ms,
+         device_ms_by_group={k: v for k, v in sorted(ms.items(), key=lambda kv: -kv[1])},
+         device_events_by_group=count,
+         top_device_events_in_region=[{"ms": t, "count": n, "group": _kernel_group(k), "name": k[:100]}
+                                      for k, (n, t) in top],
+         other_device_ms_by_host_op={k: {"ms": t, "count": n}
+                                     for k, (n, t) in sorted(other_by_op.items(), key=lambda kv: -kv[1][1])},
+         traced_kernel_launches=traced, launches=launches, expected_launches=expect,
+         plain_calls=plain, trace_none_records_nothing=untraced, ok=ok)
+    if not ok:
+        checks.failed.append("search traced by kernel name")
+
+
+def _decimated_qscan(checks, smi, task, windows):
+    """(b) first half: qscan at d = DECIMATION on the whitened windows, card
+    vs CPU in f32, and the d = 4 spectrogram against d = 1's."""
+    from gwkit_torch.ops.qtransform import _row_energies, make_qplan, plane_peaks, qscan
+
+    q = task.qcfg
+    plan = make_qplan(q.kernel_length, float(q.sample_rate), q.q_range, q.spectrogram_shape)
+    kw = dict(norm=q.qscan_norm, median_stride=q.median_stride)
+    x = windows.reshape(-1, windows.shape[-1]).float()  # (windows x detectors, samples)
+    t = torch.arange(x.shape[-1], device=x.device) / float(q.sample_rate)
+    burst = torch.sin(2 * np.pi * 180 * t) * torch.exp(-(((t - 0.5) / 0.05) ** 2))
+    loud = x + BURST_OVER_NOISE * x.std() * burst
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    with torch.no_grad():
+        t0 = time.time()
+        card = qscan(x, plan, time_decimation=DECIMATION, **kw)
+        torch.cuda.synchronize()
+        card_ms = (time.time() - t0) * 1e3
+        cpu = qscan(x.cpu(), plan, time_decimation=DECIMATION, **kw)
+        full = qscan(x, plan, **kw)
+        loud_corr = _row_correlation(qscan(loud, plan, time_decimation=DECIMATION, **kw), qscan(loud, plan, **kw))
+        noise_corr = _row_correlation(card, full)
+        _, r1 = _row_energies(x, plan, q.qscan_norm, q.median_stride)
+        _, rd = _row_energies(x, plan, q.qscan_norm, q.median_stride, DECIMATION)
+        peaks = torch.sort(plane_peaks(_row_energies(x.cpu(), plan, q.qscan_norm, q.median_stride, DECIMATION)[1],
+                                       plan), dim=1).values
+    margin = float(((peaks[:, -1] - peaks[:, -2]) / peaks[:, -1]).min())
+    checks.compare(f"qscan time_decimation={DECIMATION}: card vs CPU, f32 ({windows.shape[0]} whitened windows "
+                   f"x {windows.shape[1]} detectors of phase 4's segment)", card.cpu(), cpu, TOL[torch.float32],
+                   best_plane_margin_min=margin)
+    ok = bool(loud_corr.min() > DECIMATION_CORR) and bool(torch.isfinite(card).all())
+    emit("qscan_decimated", card=smi, windows=int(windows.shape[0]), rows=int(x.shape[0]), d=DECIMATION,
+         shape=list(card.shape[1:]), card_ms_first_call=card_ms,
+         correlation_with_d1_burst_windows={"min": float(loud_corr.min()), "median": float(loud_corr.median())},
+         burst="180 Hz sine-Gaussian, tau 0.05 s, at 0.5 s, amplitude 10x the windows' std (gwkit's test)",
+         tol=DECIMATION_CORR,
+         correlation_with_d1_noise_windows={"min": float(noise_corr.min()), "median": float(noise_corr.median())},
+         best_plane_differs_from_d1_noise_windows=float(
+             (plane_peaks(r1, plan).argmax(dim=1) != plane_peaks(rd, plan).argmax(dim=1)).float().mean()),
+         note="the bar is gwkit's, on a loud burst; on noise alone the decimated scan picks another plane for part "
+              "of the windows, in gwkit as here (the CPU tests hold the two packages equal at d = 4)", ok=ok)
+    if not ok:
+        checks.failed.append("decimated spectrogram vs d = 1")
+
+
+def _decimated_search(checks, smi, task, bf16):
+    """(b) second half: phase 4's segment searched with
+    QAdapterConfig(time_decimation=DECIMATION): 4 A, 8 B, 4 C a batch, no
+    plain call; scores and triggers against phase 4's d = 1 search."""
+    from gwkit_torch.search.engine import score_segments
+
+    task = dataclasses.replace(task, qcfg=dataclasses.replace(task.qcfg, time_decimation=DECIMATION))
+    seg, cfg, threshold = bf16["segment"], bf16["cfg"], bf16["threshold"]
+    n_batches = [0]
+
+    def score(windows):
+        n_batches[0] += 1
+        return task.score(windows)
+
+    warm = score_segments(score, [seg], cfg, trigger_threshold=threshold, device=task.device)
+    n_batches[0] = 0
+    _cuda.reset_counts()
+    res = score_segments(score, [seg], cfg, trigger_threshold=threshold, device=task.device)
+    launches, plain, nb = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS), n_batches[0]
+    nl = task.cfg.encoder.n_layers
+    expect = {"attention": nl * nb, "attention_bwd": 0, "ln_gemm": 2 * nl * nb, "fused_mlp": nl * nb, "int8_gemm": 0}
+    finite = bool(np.isfinite(res.all_vals).all())
+    ok = launches == expect and not plain and nb > 0 and finite and res.n_windows == len(bf16["all_vals"])
+    t_dec, t_full = _trigger_times(res.triggers), bf16["trigger_times"]
+    union = t_dec | t_full
+    emit("search_decimated", card=smi, d=DECIMATION, windows=res.n_windows, batches=nb, threshold=threshold,
+         launches=launches, expected_launches=expect, plain_calls=plain, scores_finite=finite,
+         strain_seconds_per_second=res.throughput_x_realtime,
+         warm_strain_seconds_per_second=warm.throughput_x_realtime, wall_s=res.wall_seconds,
+         triggers={"d4": len(t_dec), "d1": len(t_full)},
+         score_correlation_with_d1=float(np.corrcoef(res.all_vals, bf16["all_vals"])[0, 1]),
+         trigger_jaccard_with_d1=len(t_dec & t_full) / len(union) if union else 1.0, ok=ok)
+    if not ok:
+        checks.failed.append("search_decimated launch counters")
+    profiled("profile_decimated", lambda: score_segments(task.score, [seg], cfg, trigger_threshold=threshold,
+                                                         device=task.device), d=DECIMATION)
+    return launches
+
+
+def utils_phase(checks, smi, bf16):
+    """Phase 11: (a) phase 4's search traced by kernel name; (b) the Q-scan's
+    time_decimation on the card and a search with it. Returns (b)'s
+    search's launches."""
+    from gwkit_torch.search.slicer import DeviceSlicer
+
+    t_phase = time.time()
+    task = _capstone_search_task()
+    batches = []
+    for windows, _, valid in DeviceSlicer(bf16["segment"], bf16["cfg"], device=task.device).batches():
+        assert valid.all()
+        batches.append(windows)
+        if len(batches) == TRACE_BATCHES:
+            break
+    _traced_search(checks, smi, task, batches)
+    _decimated_qscan(checks, smi, task, torch.cat(batches))
+    search = _decimated_search(checks, smi, task, bf16)
+    emit("utils_phase", wall_s=time.time() - t_phase)
+    return search
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3169,6 +3385,7 @@ def main():
     search_mesh, train_mesh = parallel_phase(checks, smi, bf16_search)
     search_generated = generation_phase(checks, smi, bf16_search)
     search_pipeline, train_pipeline = pipeline_phase(checks, smi, bf16_search)
+    search_decimated = utils_phase(checks, smi, bf16_search)
     kernels = []
     for name in KERNELS:
         r = records[name]
@@ -3192,7 +3409,8 @@ def main():
                                              "train_mesh": train_mesh.get(name, 0),
                                              "search_generated": search_generated.get(name, 0),
                                              "search_pipeline": search_pipeline.get(name, 0),
-                                             "train_pipeline": train_pipeline.get(name, 0)},
+                                             "train_pipeline": train_pipeline.get(name, 0),
+                                             "search_decimated": search_decimated.get(name, 0)},
                         **extra})
     if checks.failed:
         print("chip_smoke: FAILED " + ", ".join(checks.failed), file=sys.stderr)

@@ -58,6 +58,10 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
                         help="Run on the CPU (plain PyTorch paths) instead of the CUDA card.")
     parser.add_argument("--debug-nans", action="store_true",
                         help="Raise if any window score is NaN or infinite.")
+    add_config_arg(parser)
+
+
+def add_config_arg(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--config", type=str, default=None,
                         help="JSON config (flat or sectioned); explicit flags take precedence.")
 

@@ -16,10 +16,12 @@ from typing import List
 
 import torch
 
-from gwkit_torch.io import _HF_PROJ, AdapterConfig, to_gwkit_numpy, write_safetensors
+from gwkit_torch.io import (_HF_PROJ, PROJ_KEYS, TARGET_PRESETS, AdapterConfig, import_peft_dir, to_gwkit_numpy,
+                            write_safetensors)
 from gwkit_torch.models.whisper import WhisperConfig
 
-__all__ = ["AdapterConfig", "init_adapters", "empty_adapters", "n_trainable", "export_peft_dir"]
+__all__ = ["AdapterConfig", "PROJ_KEYS", "TARGET_PRESETS", "init_adapters", "empty_adapters", "n_trainable",
+           "export_peft_dir", "import_peft_dir"]
 
 
 def init_adapters(cfg: WhisperConfig, acfg: AdapterConfig, encoder_params: dict,

@@ -31,6 +31,7 @@ class QAdapterConfig:
     channels: Tuple[int, int, int] = (32, 64, 128)
     qscan_norm: str = "median"
     median_stride: int = 1
+    time_decimation: int = 1  # > 1: gwkit's spectral fold of the tile energies (ops.qtransform.qscan)
 
 
 def param_shapes(cfg: QAdapterConfig) -> dict:
@@ -87,7 +88,7 @@ def qadapter_apply(cfg: QAdapterConfig, params: dict, strain: torch.Tensor) -> t
     B, D, T = strain.shape
     plan = make_qplan(cfg.kernel_length, float(cfg.sample_rate), cfg.q_range, cfg.spectrogram_shape)
     qspec = qscan(strain.reshape(B * D, T), plan, norm=cfg.qscan_norm,
-                  median_stride=cfg.median_stride)
+                  median_stride=cfg.median_stride, time_decimation=cfg.time_decimation)
     return qadapter_apply_spec(cfg, params, qspec.reshape(B, D, *qspec.shape[1:]))
 
 

@@ -29,7 +29,7 @@ with each fused layer a :class:`~gwkit_torch.ops.fused_block.FusedBlock`.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -44,6 +44,8 @@ from gwkit_torch.ops.fused_block import (FusedLayer, fold_layer, fused_encoder_b
 from gwkit_torch.ops.fused_mlp import _gelu, fused_mlp_block
 from gwkit_torch.parallel.mesh import (Mesh, copy_to_model, current_mesh, gather_layer, gather_model,
                                        model_sum_, reduce_from_model)
+
+Params = Dict[str, Any]  # an encoder's parameter tree (:func:`init_encoder_params`'s layout)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,7 +278,7 @@ def _conv1d(x: torch.Tensor, p: dict, stride: int) -> torch.Tensor:
         return F.conv1d(x, p["w"].permute(2, 1, 0), p["b"], stride=stride, padding=1)
 
 
-def _encode(cfg: WhisperConfig, params: dict, mel: torch.Tensor, layers: List, run_layer) -> torch.Tensor:
+def _encode(cfg: WhisperConfig, params: Params, mel: torch.Tensor, layers: List, run_layer) -> torch.Tensor:
     """Stem, positions, ``run_layer(x, layer)`` for each of ``layers``, final
     LayerNorm; ``params``' stem, pos and ln_post are cast to the compute
     dtype here (a no-op when they already are)."""
@@ -296,7 +298,7 @@ class WhisperEncoder:
     compute dtype and, with ``cfg.fused_block``, folded for the kernel chain
     (on the weights' device). ``__call__(mel)`` -> (B, T/2, d_model)."""
 
-    def __init__(self, cfg: WhisperConfig, params: dict, adapters: Optional[List[dict]] = None):
+    def __init__(self, cfg: WhisperConfig, params: Params, adapters: Optional[List[dict]] = None):
         dt = cfg.compute_dtype
         self.cfg = cfg
         self.params = {name: tree_to(params[name], dt) for name in ("conv1", "conv2", "pos", "ln_post")}
@@ -318,7 +320,7 @@ class WhisperEncoder:
         return _encode(self.cfg, self.params, mel, self.layers, self._layer)
 
 
-def encoder_apply(cfg: WhisperConfig, params: dict, mel: torch.Tensor,
+def encoder_apply(cfg: WhisperConfig, params: Params, mel: torch.Tensor,
                   adapters: Optional[List[dict]] = None) -> torch.Tensor:
     """Whisper encoder forward, differentiable in the parameters and the
     per-layer ``adapters``: mel (B, n_mels, T) -> (B, T/2, d_model).

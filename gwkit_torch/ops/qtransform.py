@@ -1,6 +1,6 @@
 """Batched constant-Q transform (Q-scan) in PyTorch (counterpart of
-``gwkit/ops/qtransform.py``): the per-window scan with
-``time_decimation=1`` and the streaming one.
+``gwkit/ops/qtransform.py``): the per-window scan, with gwkit's
+``time_decimation`` fold, and the streaming one.
 
 The static plan (``make_qplan`` and its helpers) is gwkit's numpy code,
 copied: rows bucketed by their native power-of-two tile length, gather
@@ -213,18 +213,29 @@ def median(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tenso
 
 
 class _PlanTensors:
-    """A plan's tables on one device (built once per (plan, device))."""
+    """A plan's tables on one device (built once per (plan, device)). The
+    bilinear taps depend only on a row's length, so they are built per
+    length on first use: a bucket folded by ``time_decimation`` to L // d
+    takes the taps of that length, never those of L."""
 
     def __init__(self, plan: QPlan, device: torch.device):
-        t_bins = plan.shape[1]
-        self.buckets = []
-        for b in plan.buckets:
-            lo, hi, w = _bilinear_taps(b.length, t_bins)
-            self.buckets.append(tuple(torch.from_numpy(a).to(device) for a in (
-                b.gather_idx.astype(np.int64), b.gather_weight, lo.astype(np.int64),
-                hi.astype(np.int64), w)))
+        self.device = device
+        self.t_bins = plan.shape[1]
+        self.buckets = [tuple(torch.from_numpy(a).to(device)
+                              for a in (b.gather_idx.astype(np.int64), b.gather_weight)) for b in plan.buckets]
         self.row_inv = torch.from_numpy(plan.row_inv.astype(np.int64)).to(device)
         self.freq_interp = [torch.from_numpy(m).to(device) for m in plan.freq_interp]
+        self._taps: Dict[int, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+
+    def taps(self, length: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(lo, hi, w) from a row of ``length`` samples to the output grid."""
+        hit = self._taps.get(length)
+        if hit is None:
+            lo, hi, w = _bilinear_taps(length, self.t_bins)
+            hit = self._taps[length] = (torch.from_numpy(lo.astype(np.int64)).to(self.device),
+                                        torch.from_numpy(hi.astype(np.int64)).to(self.device),
+                                        torch.from_numpy(w).to(self.device))
+        return hit
 
 
 # (id(plan), device) -> (plan, tables); holding the plan keeps its id unique
@@ -242,15 +253,22 @@ def _plan_tensors(plan: QPlan, device: torch.device) -> _PlanTensors:
 def qscan(strain: torch.Tensor, plan: QPlan | None = None, *, duration: float = 1.0,
           sample_rate: float = 2048.0, q_range: Tuple[float, float] = (4.0, 128.0),
           spectrogram_shape: Tuple[int, int] = (128, 128), norm: str = "median",
-          median_stride: int = 1) -> torch.Tensor:
+          median_stride: int = 1, time_decimation: int = 1) -> torch.Tensor:
     """Q-scan of (B, N) strain -> (B, f_bins, t_bins) normalized energy.
 
     ``median_stride`` > 1 estimates a row's median from every k-th sample;
     each bucket clamps the stride so at least 64 samples (or the whole row)
-    enter the estimate."""
+    enter the estimate.
+
+    ``time_decimation`` d > 1 (gwkit's legacy knob) folds each bucket of
+    length L with L // d >= t_bins to L // d: its spectrum's d slices are
+    summed, which gives the row's energies at every d-th sample exactly
+    (:func:`_tile_energy`). The normalizer, the peak and the interpolation
+    taps are then taken on the folded grid, so the spectrogram differs
+    slightly from d = 1's."""
     if plan is None:
         plan = make_qplan(duration, sample_rate, q_range, spectrogram_shape)
-    tinterp, rowmax = _row_energies(strain, plan, norm, median_stride)
+    tinterp, rowmax = _row_energies(strain, plan, norm, median_stride, time_decimation)
     return _plane_select(tinterp, rowmax, plan, _plan_tensors(plan, strain.device).freq_interp)
 
 
@@ -266,18 +284,35 @@ def _normalizer(energy: torch.Tensor, norm: str, stride: int) -> torch.Tensor:
     return torch.clamp(denom, min=1e-30)
 
 
-def _row_energies(strain: torch.Tensor, plan: QPlan, norm: str, median_stride: int):
+def _tile_energy(spec: torch.Tensor, d: int = 1, rescale: bool = False) -> torch.Tensor:
+    """|iFFT|^2 of (..., L) band spectra. With d > 1 the spectrum is first
+    folded to L // d (its d slices summed): the result is the energy at
+    every d-th sample, times d^2, which ``rescale`` divides out (gwkit
+    skips that pass where a median or mean normalizer cancels it)."""
+    if d > 1:
+        spec = spec.reshape(*spec.shape[:-1], d, spec.shape[-1] // d).sum(dim=-2)
+    y = torch.fft.ifft(spec, dim=-1)
+    energy = y.real ** 2 + y.imag ** 2
+    if d > 1 and rescale:
+        energy = energy * (1.0 / d ** 2)
+    return energy
+
+
+def _row_energies(strain: torch.Tensor, plan: QPlan, norm: str, median_stride: int, time_decimation: int = 1):
     """Every row's normalized energy on the output time grid (B, rows,
     t_bins) and its peak (B, rows), rows in plane-major order."""
     tabs = _plan_tensors(plan, strain.device)
+    d = max(1, int(time_decimation))
     fseries = torch.fft.rfft(strain.float(), dim=-1)  # (B, F)
     tinterp_parts, rowmax_parts = [], []
-    for bucket, (gidx, gw, lo, hi, w) in zip(plan.buckets, tabs.buckets):
-        L = bucket.length
-        spec = fseries[:, gidx] * gw  # (B, n_L, L)
-        y = torch.fft.ifft(spec, dim=-1)
-        energy = y.real ** 2 + y.imag ** 2
+    for bucket, (gidx, gw) in zip(plan.buckets, tabs.buckets):
+        # gwkit folds only rows that keep at least t_bins samples: shorter
+        # ones would blur below the output grid for little saving
+        fold = d if d > 1 and bucket.length // d >= tabs.t_bins else 1
+        energy = _tile_energy(fseries[:, gidx] * gw, fold, rescale=norm == "none")  # (B, n_L, L // fold)
+        L = energy.shape[-1]
         denom = _normalizer(energy, norm, min(median_stride, max(1, L // 64)))
+        lo, hi, w = tabs.taps(L)
         tlow = energy[..., lo]
         thigh = energy[..., hi]
         tinterp_parts.append((tlow + w * (thigh - tlow)) / denom)

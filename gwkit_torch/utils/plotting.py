@@ -5,7 +5,7 @@ Each writes a PNG and returns its path; matplotlib is imported lazily
 (Agg backend), so a machine without it runs everything else."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -19,7 +19,9 @@ def _plt():
     return plt
 
 
-def plot_losses(losses_txt: str, out_png: str) -> str:
+def plot_losses(losses_txt: str, out_png: str, metrics: Optional[dict] = None) -> str:
+    """Train and validation loss against epoch from ``losses.txt``;
+    ``metrics`` is accepted and ignored, as gwkit does."""
     plt = _plt()
     data = np.loadtxt(losses_txt).reshape(-1, 3)
     fig, ax = plt.subplots(figsize=(7, 4))
