@@ -1,0 +1,7 @@
+"""mfu: the whole step's model FLOPs (``gwbench.counts``) completed in the
+traced slice, over its wall time and the card's dense bf16 peak (%)."""
+from gwbench.readers import mfu_percent
+
+
+def read(ctx):
+    return mfu_percent(ctx)
