@@ -3201,7 +3201,7 @@ def _traced_search(checks, smi, task, batches):
         trace_file, trace_bytes = files[0], os.path.getsize(os.path.join(logdir, files[0]))
         with open(os.path.join(logdir, trace_file)) as f:
             events = json.load(f)["traceEvents"]
-    region = [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == "search"]
+    region = [e for e in events if e.get("ph") == "X" and e.get("name") == "search"]
     assert len(region) == 1, f"{len(region)} 'search' regions in the trace"
     r0, r1 = region[0]["ts"], region[0]["ts"] + region[0]["dur"]
     # a device event is in the region when the host call that launched it

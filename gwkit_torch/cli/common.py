@@ -46,7 +46,8 @@ SECTIONS: Dict[str, str] = {
     "chirp_distance": "eval", "faps": "eval", "padding_start": "eval",
     "padding_end": "eval",
 }
-_RUN_ONLY = {"config", "help"}
+# not part of a run's configuration: never read from nor written to a config file
+_RUN_ONLY = {"config", "help", "trace_dir"}
 
 
 def add_common_args(parser: argparse.ArgumentParser) -> None:

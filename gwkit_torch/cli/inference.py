@@ -13,7 +13,9 @@ the encoder's projections on int8 (kernel E) on the card and, as in gwkit,
 does nothing on the CPU. ``--qscan-stream`` takes the experimental streaming
 Q-scan for long segments. Under ``torchrun`` each process searches a
 round-robin share of the segments, the trigger lists merge through
-``--shard-dir``, and rank 0 writes the output.
+``--shard-dir``, and rank 0 writes the output. ``--trace-dir DIR`` records
+the search in a ``torch.profiler`` trace under DIR, with the port's
+``gw.*`` layer spans, and prints the port's counters over the search.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from gwkit_torch.models.qadapter import param_shapes as qadapter_shapes
 from gwkit_torch.models.whisper import (WhisperConfig, config_for, init_encoder_params,
                                         param_shapes, sinusoid_positions)
 from gwkit_torch.train.tasks import Task, build_mlgwsc
+from gwkit_torch.utils.tracing import COUNTERS, trace
 
 
 def parse_args(argv=None):
@@ -79,6 +82,10 @@ def parse_args(argv=None):
                         "is Q-transformed once and windows crop their spectrograms from it. Not "
                         "the per-window transform: the two differ near window edges by design. "
                         "Slower than the per-window scan on an H100 (PERF.md section 7).")
+    p.add_argument("--trace-dir", type=str, default=None,
+                   help="Record the search in a torch.profiler trace under this directory "
+                        "(the port's gw.* layer spans beside the device operations) and print the "
+                        "port's counters over the search.")
     return parse_with_config(p, argv)
 
 
@@ -195,14 +202,18 @@ def main(argv=None):
     if args.debug_nans:
         task.score = _finite_scores(task.score)
         task.score_spec = _finite_scores(task.score_spec)
-    triggers, all_vals, result = get_triggers(
-        task, args.inputfile,
-        step_size=args.step_size, trigger_threshold=args.trigger_threshold,
-        white=args.white, whitened_file=args.debug_whitened_file,
-        batch_size=args.batch_size, verbose=args.verbose,
-        stream=None if args.stream is None else bool(args.stream),
-        shard_dir=args.shard_dir, qscan_stream=args.qscan_stream,
-    )
+    counted = dict(COUNTERS)
+    with trace(args.trace_dir):
+        triggers, all_vals, result = get_triggers(
+            task, args.inputfile,
+            step_size=args.step_size, trigger_threshold=args.trigger_threshold,
+            white=args.white, whitened_file=args.debug_whitened_file,
+            batch_size=args.batch_size, verbose=args.verbose,
+            stream=None if args.stream is None else bool(args.stream),
+            shard_dir=args.shard_dir, qscan_stream=args.qscan_stream,
+        )
+    if args.trace_dir is not None:
+        print("Counters over the search: " + ", ".join(f"{k} {v - counted[k]}" for k, v in COUNTERS.items()))
     if process_index() != 0:  # every rank holds the merged triggers; rank 0 writes them
         return
     print(f"Total slices above threshold {args.trigger_threshold:.3f}: "

@@ -24,6 +24,7 @@ from gwkit_torch.models.heads import (HEAD_DROPOUT, HEAD_WIDTHS, cnn_head_apply,
                                       init_mlp_head, mlp_head_apply)
 from gwkit_torch.models.whisper import WhisperConfig, WhisperEncoder, encoder_apply
 from gwkit_torch.ops.mel import whisper_log_mel
+from gwkit_torch.utils.tracing import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,9 +52,10 @@ def _pool(seq: torch.Tensor, how: str) -> torch.Tensor:
 def encode_embedding(cfg: ClassifierConfig, encoder: Union[WhisperEncoder, dict], mel: torch.Tensor,
                      adapters: Optional[List[dict]] = None) -> torch.Tensor:
     """mel (B, 80, T) -> pooled embedding (B, d_model) in float32."""
-    seq = encoder(mel) if isinstance(encoder, WhisperEncoder) else \
-        encoder_apply(cfg.encoder, encoder, mel, adapters)
-    return _pool(seq, cfg.pool).float()
+    with annotate("gw.encoder"):
+        seq = encoder(mel) if isinstance(encoder, WhisperEncoder) else \
+            encoder_apply(cfg.encoder, encoder, mel, adapters)
+        return _pool(seq, cfg.pool).float()
 
 
 def _mlp(cfg: ClassifierConfig, head, emb: torch.Tensor, generator) -> torch.Tensor:

@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from gwkit_torch.io import Leaf
+from gwkit_torch.utils.tracing import annotate
 
 HEAD_WIDTHS = {
     "two_channel": (1024, 512, 256),
@@ -48,14 +49,15 @@ def mlp_head_apply(params: List[dict], x: torch.Tensor, *, dropout_rate: float =
     head's placement) and an optional final softmax. ``generator=None`` is
     inference mode: no dropout."""
     n = len(params)
-    for i, p in enumerate(params):
-        x = x @ p["w"] + p["b"]
-        if i < n - 1:
-            x = torch.relu(x)
-            if dropout_rate > 0.0 and generator is not None:
-                keep = torch.rand(x.shape, generator=generator).to(x.device) < 1.0 - dropout_rate
-                x = torch.where(keep, x / (1.0 - dropout_rate), torch.zeros_like(x))
-    return torch.softmax(x, dim=-1) if softmax else x
+    with annotate("gw.head"):
+        for i, p in enumerate(params):
+            x = x @ p["w"] + p["b"]
+            if i < n - 1:
+                x = torch.relu(x)
+                if dropout_rate > 0.0 and generator is not None:
+                    keep = torch.rand(x.shape, generator=generator).to(x.device) < 1.0 - dropout_rate
+                    x = torch.where(keep, x / (1.0 - dropout_rate), torch.zeros_like(x))
+        return torch.softmax(x, dim=-1) if softmax else x
 
 
 def init_cnn_head(num_classes: int, generator: torch.Generator, channels=(2, 64, 128, 256)) -> dict:
@@ -75,6 +77,7 @@ def cnn_head_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     convolution (ReLU after each), then the mean over the length and the
     linear layer."""
     h = x
-    for p in params["convs"]:
-        h = torch.relu(F.conv1d(h, p["w"].permute(2, 1, 0), p["b"], padding=1))
-    return h.mean(dim=-1) @ params["out"]["w"] + params["out"]["b"]
+    with annotate("gw.head"):
+        for p in params["convs"]:
+            h = torch.relu(F.conv1d(h, p["w"].permute(2, 1, 0), p["b"], padding=1))
+        return h.mean(dim=-1) @ params["out"]["w"] + params["out"]["b"]

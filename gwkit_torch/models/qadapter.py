@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from gwkit_torch.device import no_tf32_convs
 from gwkit_torch.io import Leaf
 from gwkit_torch.ops.qtransform import make_qplan, qscan
+from gwkit_torch.utils.tracing import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,13 +98,14 @@ def qadapter_apply_spec(cfg: QAdapterConfig, params: dict, qspec: torch.Tensor) 
     post-Q-scan half of :func:`qadapter_apply`, which the streaming search
     feeds with cropped spectrograms."""
     B, D = qspec.shape[:2]
-    x = qspec.reshape(B * D, 1, *qspec.shape[2:])
-    with no_tf32_convs():
-        x = F.max_pool2d(torch.relu(_conv2d(x, params["conv1"], 1)), 2)
-        x = F.max_pool2d(torch.relu(_conv2d(x, params["conv2"], 1)), 2)
-        x = torch.relu(_conv2d(x, params["conv3"], 1))
-        x = _conv2d(x, params["conv4"], 0)[:, 0]  # (B*D, F', T')
-    x = adaptive_avg_pool2d(x, cfg.target_shape)
-    x = params["scale"] * x + params["bias"]
-    x = x.reshape(B, D, *cfg.target_shape)
-    return x * params["film_gamma"][None, :, None, None] + params["film_beta"][None, :, None, None]
+    with annotate("gw.qadapter"):
+        x = qspec.reshape(B * D, 1, *qspec.shape[2:])
+        with no_tf32_convs():
+            x = F.max_pool2d(torch.relu(_conv2d(x, params["conv1"], 1)), 2)
+            x = F.max_pool2d(torch.relu(_conv2d(x, params["conv2"], 1)), 2)
+            x = torch.relu(_conv2d(x, params["conv3"], 1))
+            x = _conv2d(x, params["conv4"], 0)[:, 0]  # (B*D, F', T')
+        x = adaptive_avg_pool2d(x, cfg.target_shape)
+        x = params["scale"] * x + params["bias"]
+        x = x.reshape(B, D, *cfg.target_shape)
+        return x * params["film_gamma"][None, :, None, None] + params["film_beta"][None, :, None, None]

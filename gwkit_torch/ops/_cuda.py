@@ -23,6 +23,8 @@ from typing import Dict, Iterable
 
 import torch
 
+from gwkit_torch.utils.tracing import COUNTERS
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("attention", "attention_bwd", "ln_gemm", "fused_mlp", "int8_gemm")
@@ -114,6 +116,7 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            COUNTERS["builds"] += 1
             path = build([name])[name]
             lib = ctypes.CDLL(str(path))
             fn_name, argtypes = _SIGNATURES[name]

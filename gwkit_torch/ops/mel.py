@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from gwkit_torch.ops.stft import stft_power
+from gwkit_torch.utils.tracing import COUNTERS
 
 N_FFT = 400
 HOP_LENGTH = 160
@@ -56,6 +57,7 @@ def mel_filter_bank(num_frequency_bins: int = N_FFT // 2 + 1, num_mel_filters: i
     """Slaney-scale, slaney-normalized triangular mel filters (num_freq,
     num_mel), float64: transformers' ``mel_filter_bank`` with norm="slaney",
     mel_scale="slaney" (Whisper's configuration)."""
+    COUNTERS["builds"] += 1
     fft_freqs = np.linspace(0.0, sampling_rate // 2, num_frequency_bins)
     mel_freqs = np.linspace(_hz_to_mel_slaney(min_frequency), _hz_to_mel_slaney(max_frequency),
                             num_mel_filters + 2)

@@ -29,6 +29,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from gwkit_torch.utils.tracing import COUNTERS, annotate
+
 
 def next_power_of_two(x: float) -> int:
     return int(2 ** np.ceil(np.log2(max(x, 1.0))))
@@ -135,6 +137,7 @@ def make_qplan(
     spectrogram_shape: Tuple[int, int] = (128, 128),
     mismatch: float = 0.2,
 ) -> QPlan:
+    COUNTERS["builds"] += 1
     n = int(round(duration * sample_rate))
     n_freq_bins = n // 2 + 1
     qs = q_values(q_range, mismatch)
@@ -246,6 +249,7 @@ def _plan_tensors(plan: QPlan, device: torch.device) -> _PlanTensors:
     key = (id(plan), str(device))
     hit = _PLAN_TABLES.get(key)
     if hit is None:
+        COUNTERS["builds"] += 1
         hit = _PLAN_TABLES[key] = (plan, _PlanTensors(plan, device))
     return hit[1]
 
@@ -268,8 +272,9 @@ def qscan(strain: torch.Tensor, plan: QPlan | None = None, *, duration: float = 
     slightly from d = 1's."""
     if plan is None:
         plan = make_qplan(duration, sample_rate, q_range, spectrogram_shape)
-    tinterp, rowmax = _row_energies(strain, plan, norm, median_stride, time_decimation)
-    return _plane_select(tinterp, rowmax, plan, _plan_tensors(plan, strain.device).freq_interp)
+    with annotate("gw.qscan"):
+        tinterp, rowmax = _row_energies(strain, plan, norm, median_stride, time_decimation)
+        return _plane_select(tinterp, rowmax, plan, _plan_tensors(plan, strain.device).freq_interp)
 
 
 def _normalizer(energy: torch.Tensor, norm: str, stride: int) -> torch.Tensor:
@@ -413,6 +418,7 @@ def make_stream_plan(
     per-window grid's instants. The per-row normalization constant is the
     window plan's (for norm median or mean any per-row constant cancels).
     """
+    COUNTERS["builds"] += 1
     base = make_qplan(duration, sample_rate, q_range, spectrogram_shape, mismatch)
     t_c = int(chunk_seconds)
     if t_c % duration != 0 or t_c <= duration:
@@ -477,6 +483,7 @@ def _stream_tensors(plan: StreamPlan, device: torch.device) -> _StreamTensors:
     key = (id(plan), str(device))
     hit = _STREAM_TABLES.get(key)
     if hit is None:
+        COUNTERS["builds"] += 1
         hit = _STREAM_TABLES[key] = (plan, _StreamTensors(plan, device))
     return hit[1]
 
@@ -492,20 +499,21 @@ def stream_energies(chunk: torch.Tensor, plan: StreamPlan) -> Tuple[torch.Tensor
     iFFT and |.|^2. Natural order is the iFFT's signed-offset order shifted
     by L/2, which multiplies the series by (-1)^m, and |.|^2 erases that.
     The complex spectra are freed bucket by bucket."""
-    tabs = _stream_tensors(plan, chunk.device)
-    fseries = torch.fft.rfft(chunk.float(), dim=-1)  # (D, n_bins)
-    n_bins = fseries.shape[-1]
-    out = []
-    for sb, w in zip(plan.buckets, tabs.windows):
-        half_l = sb.length // 2
-        padded = torch.nn.functional.pad(fseries, (half_l, max(0, int(sb.centers.max()) + half_l - n_bins)))
-        # row i's band is the slice padded[:, c_i : c_i + L]
-        spec = torch.stack([padded[:, c: c + sb.length] for c in sb.centers.tolist()], dim=1) * w  # (D, n_rows, L)
-        y = torch.fft.ifft(spec, dim=-1)
-        del spec
-        out.append(y.real ** 2 + y.imag ** 2)
-        del y
-    return tuple(out)
+    with annotate("gw.qscan"):
+        tabs = _stream_tensors(plan, chunk.device)
+        fseries = torch.fft.rfft(chunk.float(), dim=-1)  # (D, n_bins)
+        n_bins = fseries.shape[-1]
+        out = []
+        for sb, w in zip(plan.buckets, tabs.windows):
+            half_l = sb.length // 2
+            padded = torch.nn.functional.pad(fseries, (half_l, max(0, int(sb.centers.max()) + half_l - n_bins)))
+            # row i's band is the slice padded[:, c_i : c_i + L]
+            spec = torch.stack([padded[:, c: c + sb.length] for c in sb.centers.tolist()], dim=1) * w  # (D, n_rows, L)
+            y = torch.fft.ifft(spec, dim=-1)
+            del spec
+            out.append(y.real ** 2 + y.imag ** 2)
+            del y
+        return tuple(out)
 
 
 def _stream_rows(energies: Tuple[torch.Tensor, ...], starts_sec: torch.Tensor, plan: StreamPlan,
@@ -557,18 +565,20 @@ def stream_crops(energies: Tuple[torch.Tensor, ...], starts_sec: torch.Tensor, p
     normalizer (median or mean over time) and the best-plane peak come from
     a strided crop of each row's native samples, as :func:`qscan`'s
     ``median_stride``; the plane is chosen per (window, detector)."""
-    tinterp, rowmax = _stream_rows(energies, starts_sec, plan, norm, median_stride)
-    b_win, d_det = tinterp.shape[:2]
-    base = plan.base
-    out = _plane_select(tinterp.reshape(b_win * d_det, -1, base.shape[1]), rowmax.reshape(b_win * d_det, -1),
-                        base, _plan_tensors(base, tinterp.device).freq_interp)
-    return out.reshape(b_win, d_det, *base.shape)
+    with annotate("gw.qscan"):
+        tinterp, rowmax = _stream_rows(energies, starts_sec, plan, norm, median_stride)
+        b_win, d_det = tinterp.shape[:2]
+        base = plan.base
+        out = _plane_select(tinterp.reshape(b_win * d_det, -1, base.shape[1]), rowmax.reshape(b_win * d_det, -1),
+                            base, _plan_tensors(base, tinterp.device).freq_interp)
+        return out.reshape(b_win, d_det, *base.shape)
 
 
 def qscan_stream(chunk: torch.Tensor, starts_sec: torch.Tensor, plan: StreamPlan, *,
                  norm: str = "median", median_stride: int = 1) -> torch.Tensor:
     """One-shot streaming Q-scan: :func:`stream_energies` then
     :func:`stream_crops`. The search calls the two halves apart, so that a
-    whitening block's energies serve every batch of its windows."""
+    whitening block's energies serve every batch of its windows; each half
+    opens its own ``gw.qscan`` span."""
     return stream_crops(stream_energies(chunk, plan), starts_sec, plan, norm=norm,
                         median_stride=median_stride)

@@ -18,6 +18,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from gwkit_torch.utils.tracing import annotate
+
 SECONDS_PER_MONTH = 30 * 24 * 60 * 60
 
 
@@ -31,19 +33,20 @@ def get_clusters(
     cluster is represented by its maximum-statistic trigger with a fixed
     timing variance of 0.2 s."""
     times, vals, tvars = [], [], []
-    for trig_list in triggers.values():
-        if len(trig_list) == 0:
-            continue
-        arr = np.asarray(trig_list, dtype=np.float64)
-        gaps = np.diff(arr[:, 0])
-        starts = np.r_[0, np.where(gaps > cluster_threshold)[0] + 1]
-        ends = np.r_[starts[1:], len(arr)]
-        for s, e in zip(starts, ends):
-            k = s + int(np.argmax(arr[s:e, 1]))
-            times.append(arr[k, 0])
-            vals.append(arr[k, 1])
-            tvars.append(0.2)
-    return np.asarray(times), np.asarray(vals), np.asarray(tvars)
+    with annotate("gw.cluster"):
+        for trig_list in triggers.values():
+            if len(trig_list) == 0:
+                continue
+            arr = np.asarray(trig_list, dtype=np.float64)
+            gaps = np.diff(arr[:, 0])
+            starts = np.r_[0, np.where(gaps > cluster_threshold)[0] + 1]
+            ends = np.r_[starts[1:], len(arr)]
+            for s, e in zip(starts, ends):
+                k = s + int(np.argmax(arr[s:e, 1]))
+                times.append(arr[k, 0])
+                vals.append(arr[k, 1])
+                tvars.append(0.2)
+        return np.asarray(times), np.asarray(vals), np.asarray(tvars)
 
 
 # ----------------------------------------------------------------------------

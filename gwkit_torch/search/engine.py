@@ -29,6 +29,7 @@ from gwkit_torch.parallel.mesh import Mesh, gather_rows, local_rows
 from gwkit_torch.search.cluster import get_clusters
 from gwkit_torch.search.slicer import (DeviceSlicer, Segment, SlicerConfig, native_streamable,
                                        read_segments, stream_segments)
+from gwkit_torch.utils.tracing import annotate
 
 
 @dataclasses.dataclass
@@ -97,11 +98,12 @@ def score_segments(
         else:
             pending = [(score_fn(windows), times, valid) for windows, times, valid in slicer.batches()]
         seg_triggers: List[List[float]] = []
-        for dev_scores, times, valid in pending:
-            scores = dev_scores.float().cpu().numpy().reshape(-1)[: len(valid)]
-            all_vals.append(scores[valid].astype(np.float32))
-            keep = (scores > trigger_threshold) & valid
-            seg_triggers.extend([float(ts), float(sc)] for ts, sc in zip(times[keep], scores[keep]))
+        with annotate("gw.triggers"):
+            for dev_scores, times, valid in pending:
+                scores = dev_scores.float().cpu().numpy().reshape(-1)[: len(valid)]
+                all_vals.append(scores[valid].astype(np.float32))
+                keep = (scores > trigger_threshold) & valid
+                seg_triggers.extend([float(ts), float(sc)] for ts, sc in zip(times[keep], scores[keep]))
         triggers[slicer.key] = seg_triggers
         n_windows += len(slicer)
         strain_seconds += seg.strain.shape[1] * seg.delta_t

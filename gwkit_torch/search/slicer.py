@@ -29,6 +29,7 @@ from gwkit_torch.device import DeviceLike, resolve_device
 from gwkit_torch.native.hostio import (ArrayPrefetch, available, dataset_prefetch_meta,
                                       read_contiguous_dataset)
 from gwkit_torch.ops.whiten import whiten_estimate
+from gwkit_torch.utils.tracing import COUNTERS, annotate
 
 
 @dataclasses.dataclass
@@ -217,7 +218,7 @@ class DeviceSlicer:
         self._raw = np.asarray(segment.strain, np.float32)
         self.dss = None
         if not self._blocked:
-            self.dss = self._whiten(torch.from_numpy(self._raw).to(device))
+            self.dss = self._whiten(self._to_device(self._raw))
         else:
             self.block_raw = max_block
             wb = self.block_raw - 2 * self.half
@@ -225,13 +226,20 @@ class DeviceSlicer:
         logging.debug("DeviceSlicer %s: %d windows (blocked=%s)", self.key, self.n_windows,
                       self._blocked)
 
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        """One host -> device copy of the search path, counted in ``h2d_bytes``."""
+        with annotate("gw.h2d"):
+            COUNTERS["h2d_bytes"] += array.nbytes
+            return torch.from_numpy(array).to(self.device)
+
     def _whiten(self, strain: torch.Tensor) -> torch.Tensor:
         if self.white:
             return strain
-        return whiten_estimate(strain, delta_t=self.delta_t,
-                               segment_duration=self.cfg.segment_duration,
-                               max_filter_duration=self.cfg.max_filter_duration,
-                               low_frequency_cutoff=self.cfg.low_frequency_cutoff)
+        with annotate("gw.whiten"):
+            return whiten_estimate(strain, delta_t=self.delta_t,
+                                   segment_duration=self.cfg.segment_duration,
+                                   max_filter_duration=self.cfg.max_filter_duration,
+                                   low_frequency_cutoff=self.cfg.low_frequency_cutoff)
 
     def __len__(self) -> int:
         return self.n_windows
@@ -244,11 +252,13 @@ class DeviceSlicer:
         for s in range(0, len(widxs), b):
             idx = np.arange(s, min(s + b, len(widxs)))
             valid = np.ones(len(idx), bool)
+            COUNTERS["windows"] += len(idx)
             if len(idx) < b:
                 pad = b - len(idx)
+                COUNTERS["padded_windows"] += pad
                 idx = np.pad(idx, (0, pad), mode="wrap")
                 valid = np.pad(valid, (0, pad))
-            starts = torch.from_numpy(local_starts[idx].astype(np.int64)).to(self.device)
+            starts = self._to_device(local_starts[idx].astype(np.int64))
             yield _gather_windows(dss, starts, self.cfg.slice_length), times[widxs[idx]], valid
 
     def _blocks(self) -> Iterator[Tuple[torch.Tensor, np.ndarray, int]]:
@@ -260,7 +270,7 @@ class DeviceSlicer:
         while done < self.n_windows:
             r_b = min(done * self.index_step, n_raw - self.block_raw)
             n_here = min(self.wins_per_block, self.n_windows - done)
-            block = torch.from_numpy(self._raw[:, r_b: r_b + self.block_raw]).to(self.device)
+            block = self._to_device(self._raw[:, r_b: r_b + self.block_raw])
             yield self._whiten(block), np.arange(done, done + n_here), r_b
             done += n_here
 
@@ -298,6 +308,8 @@ class DeviceSlicer:
             n_batches = -(-len(widxs) // b)
             pad = n_batches * b - len(widxs)
             widxs_p = np.pad(widxs, (0, pad), mode="edge")
+            COUNTERS["windows"] += len(widxs)
+            COUNTERS["padded_windows"] += pad
             valid = np.pad(np.ones(len(widxs), bool), (0, pad))
             local = (widxs_p * self.index_step - r_b).astype(np.float32)
             pad_c = splan.chunk_samples - dss.shape[1]
@@ -306,12 +318,13 @@ class DeviceSlicer:
             del dss
             for i in range(n_batches):
                 sl = slice(i * b, (i + 1) * b)
-                starts_sec = torch.from_numpy(local[sl]).to(self.device) * self.delta_t
+                starts_sec = self._to_device(local[sl]) * self.delta_t
                 qspec = stream_crops(energies, starts_sec, splan, norm=norm, median_stride=median_stride)
                 yield score_spec_fn(qspec), times[widxs_p[sl]], valid[sl]
 
 
 def _gather_windows(dss: torch.Tensor, starts: torch.Tensor, slice_length: int) -> torch.Tensor:
     """(D, N), (B,) -> (B, D, slice_length) on-device window gather."""
-    idx = starts[:, None] + torch.arange(slice_length, device=dss.device)[None, :]
-    return dss[:, idx].transpose(0, 1)
+    with annotate("gw.windows"):
+        idx = starts[:, None] + torch.arange(slice_length, device=dss.device)[None, :]
+        return dss[:, idx].transpose(0, 1)

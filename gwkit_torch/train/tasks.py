@@ -42,6 +42,7 @@ from gwkit_torch.ops.mel import whisper_log_mel
 from gwkit_torch.ops.resample import resample_timeseries
 from gwkit_torch.train.checkpoints import save_pytree
 from gwkit_torch.train.losses import bce_with_logits, cross_entropy, reg_bce
+from gwkit_torch.utils.tracing import COUNTERS, annotate
 
 DEFAULT_ACFG = AdapterConfig(r=8, alpha=32, use_dora=True, targets="qkvo")
 
@@ -68,11 +69,12 @@ class Task:
 
     def log_mels(self, strain: torch.Tensor) -> List[torch.Tensor]:
         """strain (B, D, T) or (B, T) -> one log-mel (B, 80, n_frames) per detector."""
-        audio = resample_timeseries(strain, self.input_sample_rate, 16000)
-        if audio.dim() == 2:
-            audio = audio[:, None]
-        mel = lambda a: whisper_log_mel(a, pad_to=self.n_frames * 160, num_frames=self.n_frames)
-        return [mel(audio[:, i]) for i in range(self.cfg.n_detectors)]
+        with annotate("gw.log_mel"):
+            audio = resample_timeseries(strain, self.input_sample_rate, 16000)
+            if audio.dim() == 2:
+                audio = audio[:, None]
+            mel = lambda a: whisper_log_mel(a, pad_to=self.n_frames * 160, num_frames=self.n_frames)
+            return [mel(audio[:, i]) for i in range(self.cfg.n_detectors)]
 
     def _embed_feats(self, encoder, adapters, feats: torch.Tensor) -> torch.Tensor:
         """Q-adapter features (B, D, 80, T*) -> (B, D * d_model), detectors
@@ -143,6 +145,7 @@ class Task:
         # each leaf's identity and in-place version counter
         key = tuple((id(t), getattr(t, "_version", None)) for t in tree_leaves([p["encoder"], p.get("adapters")]))
         if self._encoder is None or key != self._encoder_key:
+            COUNTERS["builds"] += 1
             self._encoder = WhisperEncoder(self.cfg.encoder, p["encoder"], p.get("adapters"))
             self._encoder_key = key
         return self._encoder

@@ -5,6 +5,16 @@ any phase in a ``torch.profiler`` session (the host always, the card's
 kernels when the process has one) and writes a trace that Chrome's
 ``chrome://tracing``, Perfetto and TensorBoard's profiler plugin load;
 :func:`annotate` names a region in it.
+
+The port opens its own spans, named ``gw.<layer>``, at the entry of each
+layer of the search and the classifiers (``gw.h2d``, ``gw.whiten``,
+``gw.windows``, ``gw.triggers``, ``gw.qscan``, ``gw.qadapter``,
+``gw.log_mel``, ``gw.encoder``, ``gw.head``, ``gw.cluster``); a profiler
+session is their only switch. They are recorded as function records
+(``cpu_op`` in the trace, like the ATen operations nested in them), not as
+``user_annotation`` ranges, so that a caller's own ``record_function``
+ranges still name every operation launched inside them. :data:`COUNTERS`
+counts, always, the work at the same boundaries.
 """
 from __future__ import annotations
 
@@ -14,6 +24,17 @@ import time
 from typing import Dict, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
+
+# Plain counts at the port's layer boundaries, always on: ``windows`` scored,
+# ``padded_windows`` (the wrap- or edge-padding of a block's last batch),
+# ``h2d_bytes`` copied host -> device at the ``gw.h2d`` spans, and ``builds``,
+# each miss of a hot-path cache (Q-scan plans and their device tables, the
+# mel filter bank, the prepared encoder, a kernel library's load).
+COUNTERS: Dict[str, int] = {"windows": 0, "padded_windows": 0, "h2d_bytes": 0, "builds": 0}
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 class PhaseTimer:
@@ -63,8 +84,12 @@ def trace(logdir: Optional[str] = None):
         logging.info("torch profiler trace written to %s", logdir)
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """Named region visible in profiler traces (``record_function``)."""
-    with torch.profiler.record_function(name):
-        yield
+    """Named region visible in profiler traces: a function record named
+    ``name`` while a ``torch.profiler`` session records, so the region lands
+    in the session's trace, on its clock, around the launches of the device
+    operations inside it; else one shared no-op context, which costs an
+    attribute test and allocates nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _RecordFunctionFast(name)
