@@ -155,16 +155,22 @@ class Task:
         """strain -> the head's output (B, num_classes) on the prepared
         encoder: USR logits or probabilities (mlgwsc), logits (the mel tasks)."""
         p = self.params
-        return self._apply(self._prepared_encoder(), p["head"], None, p.get("qadapter"), strain)
+        if self.qcfg is not None:
+            return self._forward_feats(qadapter_apply(self.qcfg, p["qadapter"], strain))
+        return self._apply(self._prepared_encoder(), p["head"], None, None, strain)
 
     @torch.no_grad()
     def forward_from_qspec(self, qspec: torch.Tensor) -> torch.Tensor:
         """:meth:`forward` from Q spectrograms (B, D, F, T), as the
         streaming search computes them: Q-adapter CNN, pool and FiLM, then
         the same prepared encoder and head."""
-        p = self.params
-        feats = qadapter_apply_spec(self.qcfg, p["qadapter"], qspec)
-        return mlp_head_apply(p["head"], self._embed_feats(self._prepared_encoder(), None, feats),
+        return self._forward_feats(qadapter_apply_spec(self.qcfg, self.params["qadapter"], qspec))
+
+    def _forward_feats(self, feats: torch.Tensor) -> torch.Tensor:
+        """Q-adapter features -> the head's output on the prepared encoder.
+        The features are queued first, so the card runs the front end while
+        the host checks the encoder's preparation."""
+        return mlp_head_apply(self.params["head"], self._embed_feats(self._prepared_encoder(), None, feats),
                               softmax=self.cfg.softmax)
 
     def score(self, windows: torch.Tensor) -> torch.Tensor:

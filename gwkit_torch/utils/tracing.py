@@ -9,6 +9,7 @@ kernels when the process has one) and writes a trace that Chrome's
 The port opens its own spans, named ``gw.<layer>``, at the entry of each
 layer of the search and the classifiers (``gw.h2d``, ``gw.whiten``,
 ``gw.windows``, ``gw.triggers``, ``gw.qscan``, ``gw.qadapter``,
+``gw.qfront_graph`` (a replay of the two as one CUDA graph),
 ``gw.log_mel``, ``gw.encoder``, ``gw.head``, ``gw.cluster``); a profiler
 session is their only switch. They are recorded as function records
 (``cpu_op`` in the trace, like the ATen operations nested in them), not as
@@ -29,10 +30,16 @@ from torch.autograd import profiler as _autograd_profiler
 
 # Plain counts at the port's layer boundaries, always on: ``windows`` scored,
 # ``padded_windows`` (the wrap- or edge-padding of a block's last batch),
-# ``h2d_bytes`` copied host -> device at the ``gw.h2d`` spans, and ``builds``,
+# ``h2d_bytes`` copied host -> device at the ``gw.h2d`` spans, ``builds``,
 # each miss of a hot-path cache (Q-scan plans and their device tables, the
-# mel filter bank, the prepared encoder, a kernel library's load).
-COUNTERS: Dict[str, int] = {"windows": 0, "padded_windows": 0, "h2d_bytes": 0, "builds": 0}
+# adaptive pool's matrices, the mel filter bank, the prepared encoder, a
+# kernel library's load, a front-end graph's capture), and the card's
+# gradient-free Q-scan and Q-adapter calls: ``qadapter_graph_captures``,
+# ``qadapter_graph_replays`` (a capturing call replays too) and
+# ``qadapter_eager_calls``.
+COUNTERS: Dict[str, int] = {"windows": 0, "padded_windows": 0, "h2d_bytes": 0, "builds": 0,
+                            "qadapter_graph_captures": 0, "qadapter_graph_replays": 0,
+                            "qadapter_eager_calls": 0}
 
 _NO_SPAN = contextlib.nullcontext()
 
