@@ -43,6 +43,15 @@ Phases, each printing one JSON line:
              K = 2048); the int8 layer in gwkit's three regimes against the
              same chain on plain versions, int8 against the unquantized
              layer;
+  3b large-v3  whisper-large-v3 (D = 1280, H = 20, F = 5120) in bf16:
+             kernel B's streamed path at a layer's launches over 16 x 1500
+             rows (LN1 + QKV, o + residual, LN2 + fc1 + GELU tanh and erf,
+             fc2 at K = 5120 + residual) against its plain version and the
+             float64 function, with times, bounds and cuBLAS's bare
+             products; one layer through fused_layer_apply (4 B, 1 A, no
+             plain call, the MLP split) against gwkit's unfused math; the
+             Signal_vs_Noise Task.forward at --encoder large-v3 on a batch
+             of 8 (128 B and 32 A, no plain call);
   4 search   the MLGWSC-1 search on the capstone weights at (80, 512): a
              300 s dual-detector segment (blocked whitening), batch 128,
              bf16 on the kernels; launch counters prove every encoder layer
@@ -190,9 +199,10 @@ Phases, each printing one JSON line:
              path: search, search_stream, search_int8, train, mel,
              mel_train, efficiency_train, efficiency, real_events,
              search_mesh, train_mesh, search_generated, search_pipeline,
-             train_pipeline, search_decimated); kernel
+             train_pipeline, search_decimated, classify_large_v3); kernel
              E's times, bound and int_mm times are the sums of its four
-             launches a layer, kernel B's of its two;
+             launches a layer, kernel B's of its two; ln_gemm_wide, B's
+             streamed path, the sums of its four launches a large-v3 layer;
 then the card's name and power limit, and the result line last.
 Fails (non-zero exit, no result line) on any disagreement, and without CUDA.
 """
@@ -228,6 +238,7 @@ KERNELS = ("attention", "attention_bwd", "ln_gemm", "fused_mlp", "int8_gemm")
 # warpgroup MMA in its SASS (HGMMA; IGMMA, the integer form, for kernel E's
 # panel and stream modes)
 HOPPER_KERNELS = ("hopper_attention_kernel", "hopper_dq_kernel", "hopper_dkdv_kernel", "hopper_ln_gemm_kernel",
+                  "hopper_wide_ln_gemm_kernel",
                   "hopper_fused_mlp_kernelILi384", "hopper_fused_mlp_kernelILi512",
                   "hopper_int8_gemm_kernelILb0", "hopper_int8_gemm_kernelILb1")
 SOURCES = {name: f"gwkit_torch/csrc/{name}.cu" for name in KERNELS}
@@ -558,6 +569,184 @@ def parity_phase(checks):
         del xb, pb, adb, lb
         torch.cuda.empty_cache()
     return records
+
+
+# whisper-large-v3's encoder (openai/whisper-large-v3): d_model 1280, 20 heads, FFN 5120, 32 layers,
+# 128 mel bins; a batch of 8 two-detector samples at Whisper's full context is 16 sequences x T = 1500
+LV3_D, LV3_F, LV3_H, LV3_LAYERS, LV3_BS, LV3_T = 1280, 5120, 20, 32, 16, 1500
+# kernel B's streamed path against its launch's function in float64 from the same bf16 operands:
+# the error's rms and largest value within these multiples of the plain bf16 version's own
+# (tests/test_torch_large_v3.py's rule; an H100 read 0.70-1.00x and 0.76-1.00x)
+WIDE_RMS_X, WIDE_MAX_X = 1.1, 1.5
+# the layer on the chain against gwkit's unfused math in f32, within these multiples of the plain
+# bf16 block's own error (the card test's rule; an H100 read 0.89x and 0.96x)
+LAYER_RMS_X, LAYER_MAX_X = 1.25, 1.5
+# the layer's four launches of B with the CLIs' tanh GELU: the kernels line's ln_gemm_wide record
+WIDE_LAYER = ("qkv", "o", "fc1_tanh", "fc2")
+
+
+def _rms(t):
+    return float(t.double().square().mean().sqrt())
+
+
+def _exact_ln_gemm(x, w, bias, ln, res, act):
+    """Kernel B's function in float64 from the same operands, nothing rounded."""
+    h = x.double()
+    if ln is not None:
+        mean = h.mean(-1, keepdim=True)
+        h = (h - mean) * torch.rsqrt((h - mean).square().mean(-1, keepdim=True) + 1e-5)
+        h = h * ln[0].double() + ln[1].double()
+    y = h @ w.double() + bias.double()
+    if act is not None:
+        y = torch.nn.functional.gelu(y, approximate="tanh" if act == "tanh" else "none")
+    return y if res is None else y + res.double()
+
+
+def _within_plain(checks, name, got, plain, want, rms_x, max_x, **extra):
+    """``got``'s error against ``want`` no larger than the plain version's
+    own: rms within ``rms_x`` times, largest within ``max_x`` times."""
+    torch.cuda.synchronize()
+    err, perr = got.double() - want, plain.double() - want
+    e = dict(rms_err=_rms(err), plain_rms_err=_rms(perr), max_abs_err=float(err.abs().max()),
+             plain_max_abs_err=float(perr.abs().max()))
+    ok = bool(torch.isfinite(got).all()) and e["rms_err"] <= rms_x * e["plain_rms_err"] \
+        and e["max_abs_err"] <= max_x * e["plain_max_abs_err"]
+    emit("parity", check=name, **e, tol={"rms": rms_x * e["plain_rms_err"], "max": max_x * e["plain_max_abs_err"]},
+         ok=ok, **extra)
+    if not ok:
+        checks.failed.append(name)
+    return e["max_abs_err"]
+
+
+def _counted(fn):
+    """(result, launches, plain calls, MLP counters) of one call of ``fn``."""
+    from gwkit_torch.utils.tracing import COUNTERS
+
+    torch.cuda.synchronize()
+    _cuda.reset_counts()
+    before = {k: COUNTERS[k] for k in ("mlp_split_layers", "mlp_fused_layers")}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS), {k: COUNTERS[k] - v for k, v in before.items()}
+
+
+def large_v3_phase(checks, smi):
+    """Phase 3b: whisper-large-v3 (D = 1280, H = 20, F = 5120, 128 mel
+    bins) in bf16 on the kernel chain. Kernel B's streamed path
+    (``hopper_wide_ln_gemm_kernel``) at a layer's launches over 16 x 1500
+    rows, LN1 + QKV (K 1280, N 3840), o + residual (1280, 1280), LN2 + fc1
+    + GELU under both forms (1280, 5120) and fc2 + residual (5120, 1280),
+    against the plain version and the float64 function, with times, bounds
+    and cuBLAS's bare products; one layer through ``fused_layer_apply``
+    (4 B, 1 A, no plain call, the MLP split) against gwkit's unfused
+    math; ``Task.forward`` of the Signal_vs_Noise task at ``--encoder
+    large-v3`` on a batch of 8 two-detector samples. Returns the kernels
+    line's ``ln_gemm_wide`` record and the forward's launches."""
+    from types import SimpleNamespace
+
+    from gwkit_torch.cli.common import build_encoder_config
+    from gwkit_torch.models.adapters import AdapterConfig
+    from gwkit_torch.train.tasks import build_signal_vs_noise
+
+    dt, dev = torch.bfloat16, torch.device("cuda")
+    D, F, H, Bs, T = LV3_D, LV3_F, LV3_H, LV3_BS, LV3_T
+    M = Bs * T
+    rng = np.random.default_rng(20)
+    p, ad = _layer(D, F, H, rng, True)
+    layer = FB.fold_layer(p, ad, H, dt)
+    x = torch.from_numpy(rng.normal(size=(Bs, T, D)).astype(np.float32)).cuda()
+    xb = x.to(dt)
+    x2 = xb.reshape(M, D)
+    ln1, ln2 = (layer.ln1_g, layer.ln1_b), (layer.ln2_g, layer.ln2_b)
+    att2 = A.attention_from_qkv(FB.ln_gemm(x2, layer.wqkv, layer.bqkv, ln=ln1, fold=layer.ln1_fold)
+                                .view(Bs, T, 3 * D), H).view(M, D)
+    x1 = FB.ln_gemm(att2, layer.wo, layer.bo, residual=x2)
+    h = FB.ln_gemm(x1, layer.w1, layer.b1, ln=ln2, act="tanh", fold=layer.ln2_fold)
+    per = {}
+    for name, xo, w, bias, ln, fold, res, act in (
+            ("qkv", x2, layer.wqkv, layer.bqkv, ln1, layer.ln1_fold, None, None),
+            ("o", att2, layer.wo, layer.bo, None, None, x2, None),
+            ("fc1_tanh", x1, layer.w1, layer.b1, ln2, layer.ln2_fold, None, "tanh"),
+            ("fc1_erf", x1, layer.w1, layer.b1, ln2, layer.ln2_fold, None, "erf"),
+            ("fc2", h, layer.w2, layer.b2, None, None, x1, None)):
+        K, N = w.shape
+        call = lambda: FB.ln_gemm(xo, w, bias, ln=ln, residual=res, act=act, fold=fold)
+        plain_call = lambda: FB._ln_gemm_reference(xo, w, bias, ln, res, act)
+        y, launches, _, _ = _counted(call)
+        plain = plain_call()
+        label = f"B wide {name} large-v3 bf16"
+        checks.compare(label, y, plain, TOL[dt], shape=[M, K, N])
+        if launches["ln_gemm"] != 1:
+            checks.failed.append(f"{label}: {launches['ln_gemm']} launches, not 1")
+        err = _within_plain(checks, f"{label} vs float64", y, plain, _exact_ln_gemm(xo, w, bias, ln, res, act),
+                            WIDE_RMS_X, WIDE_MAX_X, shape=[M, K, N])
+        del y, plain
+        torch.cuda.empty_cache()
+        n_bytes = 2 * (M * K + K * N + M * N * (2 if res is not None else 1) + (2 * K if ln is not None else 0)) + 4 * N
+        b_ms, by = bound_ms(n_bytes, 2 * M * K * N, dt)
+        gemm = lambda: torch.matmul(xo, w)
+        rec = dict(ms=median_ms(call), plain_ms=median_ms(plain_call), bound_ms=b_ms, bound_by=by,
+                   library_ms=median_ms(gemm), device_ms=device_ms(call), library_device_ms=device_ms(gemm),
+                   max_abs_err=err)
+        emit("timing", name="ln_gemm_wide", launch=name, dtype="bf16",
+             shapes=f"large-v3 {name}: M = {M} (16 seq x T = 1500), K = {K}, N = {N}", **rec,
+             bound_share_of_device=b_ms / rec["device_ms"], device_over_library=rec["device_ms"] / rec["library_device_ms"])
+        per[name] = rec
+    record = {k: sum(per[n][k] for n in WIDE_LAYER)
+              for k in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms", "library_device_ms")}
+    record.update(bound_by="operations" if all(per[n]["bound_by"] == "operations" for n in WIDE_LAYER) else "bytes",
+                  max_abs_err=max(per[n]["max_abs_err"] for n in WIDE_LAYER))
+    emit("timing", name="ln_gemm_wide", dtype="bf16", shapes="large-v3 layer: B's four launches (qkv, o, fc1 tanh, fc2)",
+         **record)
+    del h, x1, att2
+    torch.cuda.empty_cache()
+
+    # one layer on the chain: B, A, B, B, B and no plain call
+    with torch.no_grad():
+        got, launches, plain_calls, mlp = _counted(lambda: FB.fused_layer_apply(xb, layer, approx=True))
+        ok = (launches == {"attention": 1, "attention_bwd": 0, "ln_gemm": 4, "fused_mlp": 0, "int8_gemm": 0}
+              and not plain_calls and mlp == {"mlp_split_layers": 1, "mlp_fused_layers": 0})
+        emit("large_v3_layer", launches=launches, plain_calls=plain_calls, mlp_counters=mlp, ok=ok)
+        if not ok:
+            checks.failed.append("large-v3 layer: not 4 B + 1 A with the MLP split and no plain call")
+        n = 4  # sequences are independent: the unfused f32 block's (B, H, T, T) scores on 4 of the 16
+        _within_plain(checks, f"K3 layer large-v3 bf16 dora tanh ({n} of {Bs} sequences) vs f32",
+                      got[:n], FB._reference_block(xb[:n], p, ad, H, approx=True),
+                      FB._reference_block(x[:n], p, ad, H, approx=True), LAYER_RMS_X, LAYER_MAX_X, shape=[n, T, D])
+        del got
+        torch.cuda.empty_cache()
+        bounds = _layer_bounds(Bs, T, D, F, H, dt)["attention"][0][0] + sum(per[n]["bound_ms"] for n in WIDE_LAYER)
+        layer_call = lambda: FB.fused_layer_apply(xb, layer, approx=True)
+        emit("timing", name="large_v3_layer", dtype="bf16", shapes="large-v3 layer: 16 seq x T = 1500, D = 1280",
+             ms=median_ms(layer_call, 5), device_ms=device_ms(layer_call, 5), bound_ms=bounds)
+    del p, ad, layer, x, xb, x2
+    torch.cuda.empty_cache()
+
+    # Task.forward at --encoder large-v3 (the CLIs' card config, weights drawn from seed 0)
+    enc_cfg = build_encoder_config(SimpleNamespace(cpu=False, encoder="large-v3"), 3000)
+    assert (enc_cfg.d_model, enc_cfg.n_layers, enc_cfg.n_mels, enc_cfg.max_positions) == (D, LV3_LAYERS, 128, T)
+    assert enc_cfg.fused_block and enc_cfg.compute_dtype == dt and enc_cfg.gelu_approx
+    t0 = time.time()
+    task = build_signal_vs_noise(enc_cfg, None, AdapterConfig(r=8, alpha=32, use_dora=True, targets="qkvo"),
+                                 device=dev, seed=0)
+    load_s = time.time() - t0
+    strain = torch.from_numpy(rng.normal(size=(Bs // 2, 2, 2048)).astype(np.float32)).to(dev)
+    task.forward(strain)  # folds the encoder once
+    logits, launches, plain_calls, mlp = _counted(lambda: task.forward(strain))
+    nl = LV3_LAYERS
+    ok = (launches == {"attention": nl, "attention_bwd": 0, "ln_gemm": 4 * nl, "fused_mlp": 0, "int8_gemm": 0}
+          and not plain_calls and mlp == {"mlp_split_layers": nl, "mlp_fused_layers": 0}
+          and tuple(logits.shape) == (Bs // 2, 1) and bool(torch.isfinite(logits).all()))
+    ms = median_ms(lambda: task.forward(strain), 5)
+    emit("large_v3_forward", card=smi, recipe="Signal_vs_Noise, --encoder large-v3 (random, torch seed 0), DoRA r=8 "
+         "a=32 qkvo, two-channel head, 3000 mel frames x 128 bins (T = 1500), batch 8 (16 sequences), bf16",
+         launches=launches, plain_calls=plain_calls, mlp_counters=mlp, ms=ms, samples_per_s=(Bs // 2) / ms * 1e3,
+         load_s=load_s, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ok=ok)
+    if not ok:
+        checks.failed.append("large-v3 forward: not 4 B + 1 A a layer with the MLP split, or no plain call")
+    del task
+    torch.cuda.empty_cache()
+    return record, launches
 
 
 # kernels B and C on 3 x 200 rows: not a multiple of C's 64-row panel, of
@@ -3368,6 +3557,7 @@ def main():
     arithmetic_checks(checks)
     int8_arithmetic_check(checks)
     records = parity_phase(checks)
+    records["ln_gemm_wide"], large_v3 = large_v3_phase(checks, smi)
     records["attention_bwd"] = attention_bwd_phase(checks)
     layer_grad_phase(checks)
     records["int8_gemm"] = int8_phase(checks)
@@ -3410,8 +3600,18 @@ def main():
                                              "search_generated": search_generated.get(name, 0),
                                              "search_pipeline": search_pipeline.get(name, 0),
                                              "train_pipeline": train_pipeline.get(name, 0),
-                                             "search_decimated": search_decimated.get(name, 0)},
+                                             "search_decimated": search_decimated.get(name, 0),
+                                             "classify_large_v3": large_v3.get(name, 0)},
                         **extra})
+    # kernel B's streamed path: the sums of its four launches a large-v3 layer (phase 3b)
+    r = records["ln_gemm_wide"]
+    kernels.append({"name": "ln_gemm_wide", "route": "cuda", "source": SOURCES["ln_gemm"],
+                    "function": "hopper_wide_ln_gemm_kernel", "replaces": REPLACES["ln_gemm"],
+                    "launches": large_v3["ln_gemm"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+                    "library_device_ms": r["library_device_ms"], "grids_per_launch": 1,
+                    "launches_by_path": {"classify_large_v3": large_v3["ln_gemm"]}})
     if checks.failed:
         print("chip_smoke: FAILED " + ", ".join(checks.failed), file=sys.stderr)
         sys.exit(1)

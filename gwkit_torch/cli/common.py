@@ -154,7 +154,8 @@ def dump_config(args: argparse.Namespace, output: Optional[str]) -> Optional[str
 
 def add_adapter_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--encoder", type=str, default="tiny",
-                        choices=["tiny", "base", "small", "medium", "large"], help="Whisper encoder size.")
+                        choices=["tiny", "base", "small", "medium", "large", "large-v3"],
+                        help="Whisper encoder size.")
     parser.add_argument("--method", type=str, default="DoRA", choices=["DoRA", "LoRA"],
                         help="Adapter variant.")
     parser.add_argument("--lora-rank", type=int, default=8, help="LoRA rank.")

@@ -39,6 +39,12 @@
 //  * Ragged M needs no masking: rows past M load as zeros (or a panel half
 //    past M is not loaded at all) and the store clips them.
 //
+// Past K = 512 (the 1280-wide layer of whisper-large-v3, its fc2 at K =
+// 5120) and wherever a GELU follows the bias, bf16 takes a second kernel,
+// hopper_wide_ln_gemm_kernel (below), which streams x beside W and folds
+// LayerNorm into the epilogue; the panel kernel above keeps K <= 512 as it
+// was.
+//
 // float32 (ln_gemm_kernel, CPU-equivalent checks and the f32 tasks): PR 1's
 // kernel. A block owns 64 rows x 128 columns, stages its 64 x K panel of x
 // in shared memory, normalizes it there, streams W through two shared
@@ -405,6 +411,329 @@ static int launch_bf16(const void* x, const void* g, const void* b, const void* 
   return (int)cudaGetLastError();
 }
 
+// ---- bfloat16 past the panel: x and W both stream (fc1, fc2 and K > 512) ----------
+//
+// hopper_wide_ln_gemm_kernel: K any multiple of 64 up to 5120, an optional
+// GELU after the bias (kernel C's rounding: round(acc + bias), GELU, round).
+// At K = 1280 a 128-row panel of x is 320 KB and no longer fits shared
+// memory, so nothing is held whole: an item is a 128 x 192 output tile,
+// and each ring stage brings its 128 x 64 slice of x (one K-major atom a
+// consumer warpgroup) and the matching 64 x 192 slice of W (three MN-major
+// atoms; the two blocks of a cluster work on panels 2p, 2p + 1 of the same
+// column tile, each loading half of W's slice and multicasting it), four
+// stages deep. A consumer accumulates its 64 x 192 tile in 96 registers
+// (m64n192k16). On the H100 at the 1280-wide layer's launches, 192 columns
+// with four stages measured 1.31x faster over the four launches than 256
+// with three, and 1.10x faster than 128 with six; clusters of 4 or 1 were
+// slower than 2 (PERF.md, section 6).
+//
+// LayerNorm is folded, as a row panel cannot be normalized in place:
+// LN(x) W + bias = rstd (x W' - mean colsum(W')) + bias + b W, with
+// W' = g (.) W rounded to bf16 and colsum(W') and bias + b W in f32, made
+// once by the wrapper (fused_block.py::ln_fold). While the products of a
+// stage run, each consumer thread reads its two accumulator rows' 16 x
+// values of the slice and adds them to a running mean and sum of squared
+// deviations (Chan's update, per slice: no cancellation at large means),
+// after the stage's products are committed and the previous stage's waited
+// for (1.07x faster over the four launches than before the commit);
+// the quad's four lanes combine theirs after the last slice, and the
+// epilogue applies rstd and the mean's correction. So LN costs no pass of
+// its own, and the function differs from the panel path's only where that
+// path rounds LN(x) to bf16 before the product (this one keeps x exact and
+// rounds g (.) W instead).
+//
+// Items are walked panel-major (the column tiles of a panel pair run on
+// neighbouring clusters, so x is read from HBM about once); the epilogue
+// is B's: residual by TMA into the warpgroup's 64 x 192 staging tile,
+// bias, rounding, GELU, residual add on the accumulators, TMA store.
+struct WideLnGemm {
+  static constexpr int ROWS = 64, CONSUMERS = 2, PANEL_ROWS = CONSUMERS * ROWS;
+  static constexpr int BN = 192, BK = 64, MAX_K = 5120, MAX_STAGES = 8;
+  static constexpr int CLUSTER = GW_LN_GEMM_CLUSTER;
+  static constexpr int THREADS = CONSUMERS * 128 + 128;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232, BLOCK_REGS = 168;
+  static_assert(PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= (CONSUMERS + 1) * BLOCK_REGS,
+                "setmaxnreg budget exceeds the block's registers");
+  static constexpr uint32_t CONSUMER_WARPS = CONSUMERS * 4;
+  static constexpr uint32_t ATOM = 64 * 64 * sizeof(bf16);  // 8 KB
+  static constexpr int W_ATOMS = BN / 64;
+  static constexpr uint32_t X_BYTES = CONSUMERS * ATOM;     // a stage's 128 x 64 slice of x
+  static constexpr uint32_t STAGE = X_BYTES + W_ATOMS * ATOM;  // + its 64 x 192 slice of W: 40 KB
+  static constexpr uint32_t OUT_TILE = W_ATOMS * ATOM;      // a warpgroup's 64 x 192 output tile
+  // shared memory, 1024-aligned: barriers | staging[warpgroup] | ring
+  static constexpr size_t BAR_BYTES = 1024, OUT_OFF = BAR_BYTES, RING_OFF = OUT_OFF + CONSUMERS * OUT_TILE;
+  static constexpr int FIT = (int)((HopperLnGemm::SMEM_LIMIT - 1024 - RING_OFF) / STAGE);
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;  // 4
+  static constexpr size_t SMEM = 1024 + RING_OFF + STAGES * STAGE;  // 1024: alignment slack
+};
+static_assert(WideLnGemm::STAGES >= 2 && WideLnGemm::SMEM <= HopperLnGemm::SMEM_LIMIT, "shared memory");
+static_assert(WideLnGemm::BAR_BYTES >= (2 + 2 * WideLnGemm::STAGES) * sizeof(uint64_t), "barriers");
+
+// Chan's update of a running (mean, m2) over n values with the 16 values of
+// row r, columns 16x .. 16x + 15, of a swizzled 64 x 64 atom of x.
+__device__ __forceinline__ void row_stats16(const unsigned char* atom, int r, int x, float n, float& mean,
+                                            float& m2) {
+  using namespace hopper;
+  float v[16];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(atom + sw128(r, 16 * x + 8 * t));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[8 * t + 2 * e] = __low2float(h[e]);
+      v[8 * t + 2 * e + 1] = __high2float(h[e]);
+    }
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) s += v[e];
+  const float mb = s * (1.f / 16.f);
+  float q = 0.f;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) q += (v[e] - mb) * (v[e] - mb);
+  const float delta = mb - mean, total = n + 16.f;
+  mean += delta * (16.f / total);
+  m2 += q + delta * delta * (n * 16.f / total);
+}
+
+__global__ void __launch_bounds__(WideLnGemm::THREADS, 1)
+hopper_wide_ln_gemm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                           const __grid_constant__ CUtensorMap rmap, const __grid_constant__ CUtensorMap ymap,
+                           const float* __restrict__ colsum, const float* __restrict__ bias, int has_ln, int act,
+                           int has_res, int M, int N, int K) {
+  typedef WideLnGemm L;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  // full[s]: the producer, + bytes (x from this block, W from every block);
+  // empty[s]: every consumer warp of every block of the cluster;
+  // out_ready[wg]: the warpgroup's first thread (+ the residual's bytes)
+  uint64_t *full = bars, *empty = bars + L::STAGES, *out_ready = bars + 2 * L::STAGES;
+  auto out_tile = [&](int wg) { return smem + L::OUT_OFF + (size_t)wg * L::OUT_TILE; };
+  auto x_atom = [&](int s, int wg) { return smem + L::RING_OFF + (size_t)s * L::STAGE + (size_t)wg * L::ATOM; };
+  auto w_slice = [&](int s) { return smem + L::RING_OFF + (size_t)s * L::STAGE + L::X_BYTES; };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < L::CONSUMERS; ++i) mbar_init(&out_ready[i], 1);
+    for (int i = 0; i < L::STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], L::CONSUMER_WARPS * L::CLUSTER);
+    }
+    mbar_init_fence();
+  }
+  cluster_sync();  // the partner's barriers are initialized before any multicast or remote arrive
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kt = K / L::BK, nt = (N + L::BN - 1) / L::BN;
+  const int n_panels = (M + L::PANEL_ROWS - 1) / L::PANEL_ROWS;
+  // item i: panels CLUSTER (i / nt) + rank of column tile i % nt; the
+  // blocks of a cluster walk the same items, so each takes part in every
+  // multicast; a panel past M computes on whatever its stages hold and
+  // stores nothing
+  const int n_items = (n_panels + L::CLUSTER - 1) / L::CLUSTER * nt;
+  const int rank = (int)cluster_rank();
+  const int first = (int)cluster_id_x(), step = (int)n_clusters_x();
+
+  if (warp >= (int)L::CONSUMER_WARPS) {  // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::PRODUCER_REGS));
+    if (warp == (int)L::CONSUMER_WARPS && lane == 0) {
+      Ring ring(L::STAGES);
+      const uint16_t mask = (1u << L::CLUSTER) - 1;
+      constexpr int PIECE_ROWS = L::BK / L::CLUSTER;  // W rows this block loads for the cluster
+      for (int item = first; item < n_items; item += step) {
+        const int p = item / nt * L::CLUSTER + rank, j = item % nt;
+        uint32_t x_bytes = 0;
+        for (int c = 0; c < L::CONSUMERS; ++c)
+          if (p * L::PANEL_ROWS + c * L::ROWS < M) x_bytes += L::ATOM;
+        int w_atoms = 0;  // the atoms of the column tile that start inside N
+        for (int a = 0; a < L::W_ATOMS; ++a)
+          if (j * L::BN + a * 64 < N) ++w_atoms;
+        for (int s = 0; s < kt; ++s) {
+          mbar_wait(&empty[ring.idx], ring.phase ^ 1);
+          mbar_arrive_expect_tx(&full[ring.idx], x_bytes + (uint32_t)w_atoms * L::ATOM);
+          for (int c = 0; c < L::CONSUMERS; ++c) {
+            const int row0 = p * L::PANEL_ROWS + c * L::ROWS;
+            if (row0 < M) tma_load_2d(x_atom(ring.idx, c), &xmap, &full[ring.idx], s * L::BK, row0);
+          }
+          for (int a = 0; a < w_atoms; ++a)
+            tma_load_2d_multicast(w_slice(ring.idx) + a * L::ATOM + rank * PIECE_ROWS * 128, &wmap,
+                                  &full[ring.idx], j * L::BN + a * 64, s * L::BK + rank * PIECE_ROWS, mask);
+          ring.advance();
+        }
+      }
+    }
+    cluster_sync();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS));
+    const int wg = warp >> 2, wl = warp & 3, gq = lane >> 2, x = lane & 3;
+    const bool leader = (threadIdx.x & 127) == 0;
+    RingConsumer<L::CLUSTER> ring(L::STAGES, empty, rank, lane);
+    uint32_t out_phase = 0;
+    for (int item = first; item < n_items; item += step) {
+      const int p = item / nt * L::CLUSTER + rank, j = item % nt;
+      const int row0 = p * L::PANEL_ROWS + wg * L::ROWS;
+      if (leader) {  // the staging tile is free once the last store has read it
+        bulk_wait_read();
+        if (has_res && row0 < M) {
+          uint32_t bytes = 0;
+          for (int a = 0; a < L::W_ATOMS; ++a)
+            if (j * L::BN + a * 64 < N) bytes += L::ATOM;
+          mbar_arrive_expect_tx(&out_ready[wg], bytes);
+          for (int a = 0; a < L::W_ATOMS; ++a)
+            if (j * L::BN + a * 64 < N)
+              tma_load_2d(out_tile(wg) + a * L::ATOM, &rmap, &out_ready[wg], j * L::BN + a * 64, row0);
+        } else {
+          mbar_arrive(&out_ready[wg]);
+        }
+      }
+      // this thread's accumulator rows wl * 16 + gq + 8 i: running mean and
+      // sum of squared deviations over its 16 columns of each slice
+      float mean[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+      float acc[L::BN / 2];
+      for (int s = 0; s < kt; ++s) {
+        mbar_wait(&full[ring.at.idx], ring.at.phase);
+        const unsigned char* xs = x_atom(ring.at.idx, wg);
+        const uint64_t adesc = desc_kmajor(xs);
+        const uint64_t bdesc = desc_mnmajor_atoms(w_slice(ring.at.idx), L::ATOM);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss<L::BN, 1>(acc, adesc + 2 * kk, bdesc + 128 * kk, s > 0 || kk > 0);
+        ring.committed();
+        if (has_ln) {  // read while the products run; the stage is released only after the next stage's
+#pragma unroll
+          for (int i = 0; i < 2; ++i) row_stats16(xs, wl * 16 + gq + 8 * i, x, 16.f * (float)s, mean[i], m2[i]);
+        }
+      }
+      ring.drain();
+      reg_fence(acc);
+      float rstd[2] = {1.f, 1.f};
+      if (has_ln) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float n = 16.f * (float)kt;  // values each lane holds
+#pragma unroll
+          for (int o = 1; o <= 2; o <<= 1) {  // the quad's four lanes share the row
+            const float mo = __shfl_xor_sync(0xffffffffu, mean[i], o), qo = __shfl_xor_sync(0xffffffffu, m2[i], o);
+            const float d = mo - mean[i];
+            m2[i] = m2[i] + qo + d * d * (0.5f * n);
+            mean[i] = 0.5f * (mean[i] + mo);
+            n *= 2.f;
+          }
+          rstd[i] = 1.f / sqrtf(m2[i] / (float)K + 1e-5f);
+        }
+      }
+
+      // epilogue: y = round(rstd (acc - mean colsum) + bias) [GELU, round]
+      // [+ residual, rounded once], in the staging tile
+      mbar_wait(&out_ready[wg], out_phase);
+      out_phase ^= 1u;
+      unsigned char* tile = out_tile(wg);
+#pragma unroll
+      for (int jj = 0; jj < L::BN / 8; ++jj) {
+        const int col = jj * 8 + 2 * x, n = j * L::BN + col;
+        const bool inside = n < N;
+        const float2 bv = inside ? *reinterpret_cast<const float2*>(bias + n) : make_float2(0.f, 0.f);
+        const float2 cv = inside && has_ln ? *reinterpret_cast<const float2*>(colsum + n) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = wl * 16 + gq + 8 * i;
+          float a0 = acc[4 * jj + 2 * i], a1 = acc[4 * jj + 2 * i + 1];
+          if (has_ln) {
+            a0 = (a0 - mean[i] * cv.x) * rstd[i];
+            a1 = (a1 - mean[i] * cv.y) * rstd[i];
+          }
+          float2 v = round_bf16x2(a0 + bv.x, a1 + bv.y);
+          if (act) v = round_bf16x2(gelu(v.x, act == 1), gelu(v.y, act == 1));
+          __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(tile + (col >> 6) * L::ATOM + sw128(r, col & 63));
+          float v0 = v.x, v1 = v.y;
+          if (has_res) {
+            const __nv_bfloat162 rv = *dst;
+            v0 = __low2float(rv) + v0;
+            v1 = __high2float(rv) + v1;
+          }
+          *dst = __floats2bfloat162_rn(v0, v1);
+        }
+      }
+      fence_proxy_async();
+      named_bar_sync(1 + wg, 128);
+      if (leader && row0 < M) {
+        for (int a = 0; a < L::W_ATOMS; ++a)
+          if (j * L::BN + a * 64 < N) tma_store_2d(&ymap, tile + a * L::ATOM, j * L::BN + a * 64, row0);
+        bulk_commit();
+      }
+    }
+    if (leader) bulk_wait();
+    cluster_sync();
+  }
+}
+
+// As hopper_setup, for the streamed kernel.
+static int wide_setup(int* clusters) {
+  typedef WideLnGemm L;
+  static int setup[64] = {}, n_clusters[64] = {};
+  int dev = 0;
+  const cudaError_t derr = cudaGetDevice(&dev);
+  if (derr != cudaSuccess) return (int)derr;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (setup[dev] == 0) {
+    cudaError_t err = cudaFuncSetAttribute(hopper_wide_ln_gemm_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+    cudaFuncAttributes attr;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, hopper_wide_ln_gemm_kernel);
+    if (err == cudaSuccess && attr.numRegs < L::BLOCK_REGS) err = cudaErrorInvalidConfiguration;
+    if (err == cudaSuccess) {
+      cudaLaunchConfig_t cfg = {};
+      cudaLaunchAttribute at[1];
+      at[0].id = cudaLaunchAttributeClusterDimension;
+      at[0].val.clusterDim.x = L::CLUSTER;
+      at[0].val.clusterDim.y = 1;
+      at[0].val.clusterDim.z = 1;
+      cfg.gridDim = dim3(L::CLUSTER * 256);
+      cfg.blockDim = dim3(L::THREADS);
+      cfg.dynamicSmemBytes = L::SMEM;
+      cfg.attrs = at;
+      cfg.numAttrs = 1;
+      err = cudaOccupancyMaxActiveClusters(&n_clusters[dev], (void*)hopper_wide_ln_gemm_kernel, &cfg);
+      if (err == cudaSuccess && n_clusters[dev] < 1) err = cudaErrorInvalidConfiguration;
+    }
+    setup[dev] = err == cudaSuccess ? -1 : (int)err;
+  }
+  *clusters = n_clusters[dev];
+  return setup[dev] > 0 ? setup[dev] : 0;
+}
+
+static int launch_wide(const void* x, const void* w, const void* colsum, const void* bias, const void* res, void* y,
+                       int M, int N, int K, int has_ln, int act, cudaStream_t stream) {
+  typedef WideLnGemm L;
+  int clusters = 0;
+  int err = wide_setup(&clusters);
+  if (err) return err;
+  CUtensorMap maps[4];
+  err = encode_maps(maps, x, w, res, y, M, N, K);
+  if (err) return err;
+  const int n_panels = (M + L::PANEL_ROWS - 1) / L::PANEL_ROWS;
+  const int need = (n_panels + L::CLUSTER - 1) / L::CLUSTER * ((N + L::BN - 1) / L::BN);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = L::CLUSTER;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(L::CLUSTER * (need < clusters ? need : clusters));
+  cfg.blockDim = dim3(L::THREADS);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, hopper_wide_ln_gemm_kernel, maps[0], maps[1], maps[2], maps[3],
+                                           static_cast<const float*>(colsum), static_cast<const float*>(bias),
+                                           has_ln, act, (int)(res != nullptr), M, N, K);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace gw
 
 // x (M, K), g/b (K,) or null (no LayerNorm), w (K, N), bias (N,) float32,
@@ -419,6 +748,21 @@ extern "C" int gw_ln_gemm(const void* x, const void* g, const void* b, const voi
   if (dtype == GW_F32) return gw::launch_f32(x, g, b, w, bias, res, y, M, N, K, s);
   if (dtype == GW_BF16) return gw::launch_bf16(x, g, b, w, bias, res, y, M, N, K, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The streamed bfloat16 path (hopper_wide_ln_gemm_kernel): x (M, K), w (K,
+// N) (with LayerNorm g (.) W as fused_block.py::ln_fold makes it), colsum
+// (N,) float32, or null for no LayerNorm, bias (N,) float32 (with LayerNorm
+// bias + b W), res (M, N) or null, y (M, N); act 0 none, 1 tanh GELU, 2 erf
+// GELU; K a multiple of 64 up to 5120, N of 8; x, w, res and y 16-byte
+// aligned. Returns a cudaError_t.
+extern "C" int gw_ln_gemm_wide(const void* x, const void* w, const void* colsum, const void* bias,
+                               const void* res, void* y, int M, int N, int K, int act, void* stream) {
+  if (K % 64 != 0 || K <= 0 || K > gw::WideLnGemm::MAX_K || N % 8 != 0 || N <= 0 || M < 0 || act < 0 || act > 2)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  return gw::launch_wide(x, w, colsum, bias, res, y, M, N, K, (int)(colsum != nullptr), act,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 kernel's cluster size and the number of its clusters resident

@@ -51,7 +51,7 @@ def _pool(seq: torch.Tensor, how: str) -> torch.Tensor:
 
 def encode_embedding(cfg: ClassifierConfig, encoder: Union[WhisperEncoder, dict], mel: torch.Tensor,
                      adapters: Optional[List[dict]] = None) -> torch.Tensor:
-    """mel (B, 80, T) -> pooled embedding (B, d_model) in float32."""
+    """mel (B, n_mels, T) -> pooled embedding (B, d_model) in float32."""
     with annotate("gw.encoder"):
         seq = encoder(mel) if isinstance(encoder, WhisperEncoder) else \
             encoder_apply(cfg.encoder, encoder, mel, adapters)
@@ -87,13 +87,15 @@ def two_channel_from_audio(cfg: ClassifierConfig, params: dict, audio0: torch.Te
                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """16 kHz audio (B, N) per detector -> logits, the log-mel front end on
     the audio's device."""
-    return two_channel_apply(cfg, params, whisper_log_mel(audio0), whisper_log_mel(audio1), adapters, generator)
+    n = cfg.encoder.n_mels
+    return two_channel_apply(cfg, params, whisper_log_mel(audio0, n_mels=n), whisper_log_mel(audio1, n_mels=n),
+                             adapters, generator)
 
 
 def one_channel_from_audio(cfg: ClassifierConfig, params: dict, audio: torch.Tensor,
                            adapters: Optional[List[dict]] = None,
                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    return one_channel_apply(cfg, params, whisper_log_mel(audio), adapters, generator)
+    return one_channel_apply(cfg, params, whisper_log_mel(audio, n_mels=cfg.encoder.n_mels), adapters, generator)
 
 
 def baseline_apply(params: List[dict], mel0: torch.Tensor, mel1: torch.Tensor) -> torch.Tensor:

@@ -52,6 +52,9 @@ def encoder_params_from_state_dict(state: Mapping[str, Any], cfg: WhisperConfig)
         })
     stacked = {name: {k: np.stack([layer[name][k] for layer in layers]) for k in layers[0][name]}
                for name in layers[0]}
+    if sd["conv1.weight"].shape[1] != cfg.n_mels:
+        raise ValueError(f"conv1 reads {sd['conv1.weight'].shape[1]} mel bins, the config {cfg.n_mels} "
+                         f"(size 'large-v3' reads 128)")
     return {
         "conv1": {"w": sd["conv1.weight"].transpose(2, 1, 0), "b": sd["conv1.bias"]},
         "conv2": {"w": sd["conv2.weight"].transpose(2, 1, 0), "b": sd["conv2.bias"]},

@@ -1,7 +1,7 @@
 """Whisper encoder backbone in PyTorch (counterpart of ``gwkit/models/whisper.py``).
 
-  mel (B, 80, T)
-  -> Conv1d(80, d, k=3, s=1, p=1) + GELU
+  mel (B, n_mels, T)            (80 bins; 128 for large-v3)
+  -> Conv1d(n_mels, d, k=3, s=1, p=1) + GELU
   -> Conv1d(d, d, k=3, s=2, p=1) + GELU      -> (B, T/2, d)
   -> + sinusoidal positions
   -> n_layers pre-LN transformer blocks (q scaled, k bias-free, GELU MLP)
@@ -73,7 +73,8 @@ PRESETS = {
     "base": dict(d_model=512, n_heads=8, n_layers=6, d_ff=2048),
     "small": dict(d_model=768, n_heads=12, n_layers=12, d_ff=3072),
     "medium": dict(d_model=1024, n_heads=16, n_layers=24, d_ff=4096),
-    "large": dict(d_model=1280, n_heads=20, n_layers=32, d_ff=5120),
+    "large": dict(d_model=1280, n_heads=20, n_layers=32, d_ff=5120),  # large-v1 and v2
+    "large-v3": dict(d_model=1280, n_heads=20, n_layers=32, d_ff=5120, n_mels=128),
 }
 
 

@@ -40,12 +40,14 @@ PLAIN_CALLS: Dict[str, int] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# each library's C entry points: (name, argtypes); kernel B's second is its streamed bf16 path
 _SIGNATURES = {
-    "attention": ("gw_attention", [_P] * 7 + [_I] * 8 + [_P]),
-    "attention_bwd": ("gw_attention_bwd", [_P] * 11 + [_I] * 8 + [_P]),
-    "ln_gemm": ("gw_ln_gemm", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "fused_mlp": ("gw_fused_mlp", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "int8_gemm": ("gw_int8_gemm", [_P] * 11 + [_I] * 5 + [_P]),
+    "attention": (("gw_attention", [_P] * 7 + [_I] * 8 + [_P]),),
+    "attention_bwd": (("gw_attention_bwd", [_P] * 11 + [_I] * 8 + [_P]),),
+    "ln_gemm": (("gw_ln_gemm", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                ("gw_ln_gemm_wide", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])),
+    "fused_mlp": (("gw_fused_mlp", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),),
+    "int8_gemm": (("gw_int8_gemm", [_P] * 11 + [_I] * 5 + [_P]),),
 }
 
 _lock = threading.Lock()
@@ -118,13 +120,17 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             COUNTERS["builds"] += 1
             path = build([name])[name]
-            lib = ctypes.CDLL(str(path))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _libs[name] = lib
+            _libs[name] = lib = bind(ctypes.CDLL(str(path)), name)
         return lib
+
+
+def bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
+    """Set the argument and result types of library ``name``'s entry points on ``lib``."""
+    for fn_name, argtypes in _SIGNATURES[name]:
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def stream_of(t: torch.Tensor) -> int:

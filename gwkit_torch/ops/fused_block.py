@@ -10,7 +10,19 @@ where it outgrows VMEM. On Hopper the layer is four launches:
   B  o-proj      x1  = x + att @ Wo + bo       (csrc/ln_gemm.cu)
   C  MLP         out = x1 + MLP(LN(x1))        (csrc/fused_mlp.cu)
 
-and with ``skip_mlp`` the first three (the counterpart of K4). DoRA is
+and with ``skip_mlp`` the first three (the counterpart of K4). C holds the
+(rows, F) activation on chip and has instantiations at D = 384 and 512
+only; a wider layer (whisper-large-v3's 1280) runs its MLP as two more
+launches of B, in a ``gw.mlp`` span:
+
+  B  LN2 + fc1 + GELU   h  = gelu(LN(x1) @ W1 + b1)   (M, F) in bf16
+  B  fc2 + residual     out = x1 + h @ W2 + b2
+
+with h rounded where C rounds its on-chip activation, so the chain computes
+the same function at every width (``COUNTERS``: ``mlp_fused_layers``,
+``mlp_split_layers``). Past K = 512 kernel B streams x beside W and takes
+LayerNorm folded into its epilogue (:func:`ln_fold`, made once by
+:func:`fold_layer`); ``skip_mlp`` and the int8 layer stay at D <= 512. DoRA is
 folded into dense effective weights and 1/sqrt(hd) into the q columns once,
 by :func:`fold_layer`, in plain f32 PyTorch (gwkit ``_effective_proj`` and
 the q-scale fold at fused_block.py:399-408); the search path folds when the
@@ -55,12 +67,35 @@ from gwkit_torch.io import tree_to
 from gwkit_torch.ops import _cuda
 from gwkit_torch.ops.attention import attention_from_qkv, flash_attention
 from gwkit_torch.ops.dora import dora_linear, dora_row_norms
-from gwkit_torch.ops.fused_mlp import _gelu, fused_mlp_block
+from gwkit_torch.ops.fused_mlp import KERNEL_WIDTHS, _gelu, fused_mlp_block
 from gwkit_torch.ops.fused_mlp import _ln as _ln_f32
 from gwkit_torch.ops.int8_gemm import QuantProj, _qdot, _quantize_cols, int8_gemm
+from gwkit_torch.utils.tracing import COUNTERS, annotate
 
 # gwkit's scoped VMEM limit, which picks the int8 regime (_fused_impl)
 VMEM_LIMIT = 16 * (1 << 20)
+# kernel B's depth limits: its panel kernel holds a 128-row panel of x in
+# shared memory; the streamed bf16 kernel streams x beside W
+PANEL_MAX_K = 512
+STREAM_MAX_K = 5120
+ACTS = {None: 0, "tanh": 1, "erf": 2}  # kernel B's epilogue GELU
+
+
+@dataclasses.dataclass
+class LnFold:
+    """LayerNorm folded into a product for kernel B's streamed path:
+    LN(x) @ W + bias = rstd * (x @ w - mean * colsum) + bias', the row's
+    mean and rstd taken by the kernel from x."""
+    w: torch.Tensor       # (K, N) g (.) W in the compute dtype
+    colsum: torch.Tensor  # (N,) f32: the column sums of ``w`` as held
+    bias: torch.Tensor    # (N,) f32: bias + b @ W
+
+
+@torch.no_grad()
+def ln_fold(w: torch.Tensor, bias: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> LnFold:
+    """The fold of LayerNorm (g, b) into W (K, N) and bias (N,)."""
+    wg = (g.float()[:, None] * w.float()).to(w.dtype).contiguous()
+    return LnFold(wg, wg.float().sum(dim=0).contiguous(), (bias.float() + b.float() @ w.float()).contiguous())
 
 
 @dataclasses.dataclass
@@ -92,6 +127,10 @@ class FusedLayer:
     # for the reference regime
     int8: Optional[QuantLayer] = None
     int8_ref: Optional[QuantLayer] = None
+    # LN1 into QKV and LN2 into fc1, for kernel B's streamed path (bf16 on
+    # the card past D = 512)
+    ln1_fold: Optional[LnFold] = None
+    ln2_fold: Optional[LnFold] = None
 
 
 def _effective_proj(p_entry: dict, adapter: Optional[dict]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -141,6 +180,9 @@ def fold_layer(p: dict, adapters: Optional[dict], n_heads: int, dtype: torch.dty
         w1=p["fc1"]["w"].contiguous(), b1=p["fc1"]["b"].float(),
         w2=p["fc2"]["w"].contiguous(), b2=p["fc2"]["b"].float(),
     )
+    if D > PANEL_MAX_K and dtype == torch.bfloat16 and layer.wqkv.is_cuda:
+        layer.ln1_fold = ln_fold(layer.wqkv, layer.bqkv, layer.ln1_g, layer.ln1_b)
+        layer.ln2_fold = ln_fold(layer.w1, layer.b1, layer.ln2_g, layer.ln2_b)
     if quant:
         fc1, fc2 = QuantProj.of(layer.w1, layer.b1), QuantProj.of(layer.w2, layer.b2)
         layer.int8 = QuantLayer(QuantProj.of(layer.wqkv, layer.bqkv), QuantProj.of(layer.wo, layer.bo),
@@ -163,12 +205,16 @@ def _quant_regime(T: int, D: int, F: int, dtype: torch.dtype) -> str:
     return "fused" if act + 4 * D * D + 2 * D * F + 4 * (1 << 20) <= VMEM_LIMIT else "split"
 
 
-def _ln_gemm_reference(x2, w, bias, ln=None, residual=None) -> torch.Tensor:
-    """Plain version of kernel B: y = [LN(x)] @ W + bias [+ residual], the
-    product accumulated in f32 and rounded once to x's dtype."""
+def _ln_gemm_reference(x2, w, bias, ln=None, residual=None, act=None) -> torch.Tensor:
+    """Plain version of kernel B: y = [LN(x)] @ W + bias [GELU] [+ residual],
+    the product accumulated in f32 and rounded once to x's dtype; the GELU
+    (``act`` "tanh" or "erf") on that value, rounded again (kernel C's
+    rounding of its activation)."""
     _cuda.count_plain("ln_gemm")
     h = _ln_f32(x2, *ln) if ln is not None else x2
     y = (h.float() @ w.float() + bias.float()).to(x2.dtype)
+    if act is not None:
+        y = _gelu(y.float(), act == "tanh").to(x2.dtype)
     return y if residual is None else residual + y
 
 
@@ -183,15 +229,32 @@ def _launch_ln_gemm(lib, stream: int, x2, w, bias, ln, residual, y) -> None:
     _cuda.LAUNCHES["ln_gemm"] += 1
 
 
+def _launch_ln_gemm_wide(lib, stream: int, x2, w, colsum, bias, residual, y, act) -> None:
+    M, K = x2.shape
+    N = w.shape[1]
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = lib.gw_ln_gemm_wide(x2.data_ptr(), w.data_ptr(), ptr(colsum), bias.data_ptr(), ptr(residual),
+                              y.data_ptr(), M, N, K, ACTS[act], stream)
+    _cuda.check(err, "ln_gemm")
+    _cuda.LAUNCHES["ln_gemm"] += 1
+
+
 def ln_gemm(x2: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-            residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel B on (M, K) rows: [LN(x)] @ W (K, N) + bias (N,) [+ residual (M, N)].
-    On CUDA, W, the LN scale/shift and the residual are in x's dtype, bias f32;
-    bfloat16 runs the wgmma/TMA kernel (``hopper_ln_gemm_kernel``), float32
-    the FMA kernel."""
+            residual: Optional[torch.Tensor] = None, act: Optional[str] = None,
+            fold: Optional[LnFold] = None) -> torch.Tensor:
+    """Kernel B on (M, K) rows: [LN(x)] @ W (K, N) + bias (N,) [GELU]
+    [+ residual (M, N)]; ``act`` "tanh" or "erf" is kernel C's GELU.
+    On CUDA, W, the LN scale/shift and the residual are in x's dtype, bias f32.
+    bfloat16 runs the wgmma/TMA panel kernel (``hopper_ln_gemm_kernel``) at
+    K <= 512 without ``act``, else the streamed kernel
+    (``hopper_wide_ln_gemm_kernel``, K up to 5120), which takes LayerNorm as
+    ``fold`` (:func:`ln_fold` of ``w``, ``bias`` and ``ln``; made here when
+    not given). float32 runs the FMA kernel (K <= 512, no ``act``)."""
+    if act not in ACTS:
+        raise ValueError(f"ln_gemm: act {act!r} (None, 'tanh' or 'erf')")
     if x2.device.type == "cpu":
-        return _ln_gemm_reference(x2, w, bias, ln, residual)
+        return _ln_gemm_reference(x2, w, bias, ln, residual, act)
     ops = [x2, w, bias, residual] + list(ln or ())
     _cuda.require_cuda("ln_gemm", *ops)
     dt = x2.dtype
@@ -199,23 +262,38 @@ def ln_gemm(x2: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise TypeError(f"ln_gemm: dtype {dt} (kernel takes float32 or bfloat16)")
     M, K = x2.shape
     N = w.shape[1]
-    if w.shape[0] != K or K % 64 or not 0 < K <= 512 or N % 8 or tuple(bias.shape) != (N,) \
+    streamed = K > PANEL_MAX_K or act is not None
+    max_k = STREAM_MAX_K if dt == torch.bfloat16 else PANEL_MAX_K
+    if w.shape[0] != K or K % 64 or not 0 < K <= max_k or N % 8 or tuple(bias.shape) != (N,) \
             or bias.dtype != torch.float32 \
             or (residual is not None and tuple(residual.shape) != (M, N)):
-        raise ValueError(f"ln_gemm: x {tuple(x2.shape)}, w {tuple(w.shape)}, bias "
-                         f"{tuple(bias.shape)} {bias.dtype}; K must be a multiple of 64 up to 512, N of 8")
+        raise ValueError(f"ln_gemm: x {tuple(x2.shape)}, w {tuple(w.shape)}, bias {tuple(bias.shape)} "
+                         f"{bias.dtype}; K must be a multiple of 64 up to {max_k} in {dt}, N of 8")
+    if streamed and dt != torch.bfloat16:
+        raise ValueError("ln_gemm: the GELU epilogue runs in bfloat16 only")
     for t in ops:
         if t is not bias and t is not None and (t.dtype != dt or not t.is_contiguous()):
             raise ValueError("ln_gemm: operands must be contiguous and share x's dtype")
     _cuda.require_aligned("ln_gemm", *(t for t in (x2, w, residual) if t is not None))
     y = torch.empty((M, N), dtype=dt, device=x2.device)
-    _launch_ln_gemm(_cuda.library("ln_gemm"), _cuda.stream_of(x2), x2, w, bias, ln, residual, y)
+    lib, stream = _cuda.library("ln_gemm"), _cuda.stream_of(x2)
+    if not streamed:
+        _launch_ln_gemm(lib, stream, x2, w, bias, ln, residual, y)
+    elif ln is None:
+        _launch_ln_gemm_wide(lib, stream, x2, w, None, bias, residual, y, act)
+    else:
+        fold = fold if fold is not None else ln_fold(w, bias, *ln)
+        _cuda.require_aligned("ln_gemm", fold.w)
+        _launch_ln_gemm_wide(lib, stream, x2, fold.w, fold.colsum, fold.bias, residual, y, act)
     return y
 
 
 def _quant_layer_apply(x: torch.Tensor, layer: FusedLayer, approx: bool, skip_mlp: bool) -> torch.Tensor:
     """The int8 layer in gwkit's regime for x's geometry (module docstring)."""
     B, T, D = x.shape
+    if D > PANEL_MAX_K:
+        raise ValueError(f"fused layer: int8 projections at d_model {D}: kernel E takes d_model up to "
+                         f"{PANEL_MAX_K} (whisper-tiny and base)")
     F = layer.w1.shape[1]
     regime = _quant_regime(T, D, F, x.dtype)
     q = layer.int8_ref if regime == "reference" else layer.int8
@@ -248,14 +326,25 @@ def fused_layer_apply(x: torch.Tensor, layer: FusedLayer, approx: bool = False,
     if layer.int8 is not None:
         return _quant_layer_apply(x, layer, approx, skip_mlp)
     B, T, D = x.shape
+    split = D > max(KERNEL_WIDTHS)  # no instantiation of C: the MLP as two launches of B
+    if split and skip_mlp:
+        raise ValueError(f"fused layer: skip_mlp at d_model {D}: the attention-only chain pairs with "
+                         f"kernel C, which takes d_model {KERNEL_WIDTHS}")
     x2 = x.reshape(B * T, D).contiguous()
-    qkv = ln_gemm(x2, layer.wqkv, layer.bqkv, ln=(layer.ln1_g, layer.ln1_b))
+    qkv = ln_gemm(x2, layer.wqkv, layer.bqkv, ln=(layer.ln1_g, layer.ln1_b), fold=layer.ln1_fold)
     att = attention_from_qkv(qkv.view(B, T, 3 * D), layer.n_heads)
-    x1 = ln_gemm(att.view(B * T, D), layer.wo, layer.bo, residual=x2).view(B, T, D)
+    x1 = ln_gemm(att.view(B * T, D), layer.wo, layer.bo, residual=x2)
     if skip_mlp:
-        return x1
-    return fused_mlp_block(x1, layer.ln2_g, layer.ln2_b, layer.w1, layer.b1, layer.w2,
-                           layer.b2, approx=approx)
+        return x1.view(B, T, D)
+    if not split:
+        COUNTERS["mlp_fused_layers"] += 1
+        return fused_mlp_block(x1.view(B, T, D), layer.ln2_g, layer.ln2_b, layer.w1, layer.b1, layer.w2,
+                               layer.b2, approx=approx)
+    COUNTERS["mlp_split_layers"] += 1
+    with annotate("gw.mlp"):
+        h = ln_gemm(x1, layer.w1, layer.b1, ln=(layer.ln2_g, layer.ln2_b), act="tanh" if approx else "erf",
+                    fold=layer.ln2_fold)
+        return ln_gemm(h, layer.w2, layer.b2, residual=x1).view(B, T, D)
 
 
 class _Slot(int):

@@ -5,7 +5,8 @@ semantics):
   pad audio with zeros to 30 s (480 000 samples at 16 kHz)
   -> STFT (n_fft 400, hop 160, periodic Hann, centred reflect padding, power 2)
   -> drop the final frame -> 3000 frames
-  -> slaney mel filter bank (80 mels, 0..8 kHz) with a 1e-10 floor
+  -> slaney mel filter bank (``n_mels``: 80, or 128 for large-v3; 0..8 kHz)
+     with a 1e-10 floor
   -> log10 -> clamp at (per-sample max - 8) -> (x + 4) / 4
 
 As gwkit, the fast path computes only the frames that can touch real audio
@@ -13,11 +14,13 @@ As gwkit, the fast path computes only the frames that can touch real audio
 floor -> log10 = -10) and is filled analytically. Inputs longer than
 ``pad_to - 200`` meet the reflect padding at the right edge and take the
 full padded computation. The mel projection is a plain ``torch.einsum``
-against the filter bank (gwkit computes it outside any Pallas kernel).
+against the filter bank (gwkit computes it outside any Pallas kernel),
+which is built once per (n_mels, dtype, device) and kept there.
 """
 from __future__ import annotations
 
 import functools
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -71,18 +74,33 @@ def mel_filter_bank(num_frequency_bins: int = N_FFT // 2 + 1, num_mel_filters: i
     return fb * enorm[None, :]
 
 
-def _log_mel_frames(audio_padded: torch.Tensor, num_frames: int) -> torch.Tensor:
+# (n_mels, dtype, device) -> the filter bank there, copied once: a copy from
+# pageable host memory on every call would stop the host until the card
+# drained its queue
+_BANKS: Dict[Tuple[int, torch.dtype, str], torch.Tensor] = {}
+
+
+def _bank(n_mels: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    key = (n_mels, dtype, str(device))
+    bank = _BANKS.get(key)
+    if bank is None:
+        COUNTERS["builds"] += 1
+        bank = _BANKS[key] = torch.as_tensor(mel_filter_bank(num_mel_filters=n_mels), dtype=dtype, device=device)
+    return bank
+
+
+def _log_mel_frames(audio_padded: torch.Tensor, num_frames: int, n_mels: int) -> torch.Tensor:
     """(B, T_padded) -> (B, n_mels, num_frames) of log10 mel power."""
     power = stft_power(audio_padded, num_frames, N_FFT, HOP_LENGTH)  # (B, F, 201)
-    filters = torch.as_tensor(mel_filter_bank(), dtype=audio_padded.dtype, device=audio_padded.device)
-    mel = torch.einsum("...fk,km->...mf", power, filters)
+    mel = torch.einsum("...fk,km->...mf", power, _bank(n_mels, audio_padded.dtype, audio_padded.device))
     return torch.log10(torch.clamp(mel, min=1e-10))
 
 
-def whisper_log_mel(audio: torch.Tensor, *, pad_to: int = N_SAMPLES, num_frames: int = N_FRAMES) -> torch.Tensor:
-    """Batched Whisper log-mel features: (B, N) audio -> (B, 80, num_frames)
-    ((N,) -> (80, num_frames)). The audio is zero-padded to ``pad_to``
-    samples implicitly; N must not exceed it."""
+def whisper_log_mel(audio: torch.Tensor, *, pad_to: int = N_SAMPLES, num_frames: int = N_FRAMES,
+                    n_mels: int = N_MELS) -> torch.Tensor:
+    """Batched Whisper log-mel features: (B, N) audio -> (B, n_mels,
+    num_frames) ((N,) -> (n_mels, num_frames)). The audio is zero-padded to
+    ``pad_to`` samples implicitly; N must not exceed it."""
     squeeze = audio.dim() == 1
     if squeeze:
         audio = audio[None]
@@ -94,15 +112,15 @@ def whisper_log_mel(audio: torch.Tensor, *, pad_to: int = N_SAMPLES, num_frames:
         # the right edge meets the reflect padding: the full computation
         full = F.pad(audio, (0, pad_to - N))
         padded = F.pad(full[:, None], (half, half), mode="reflect")[:, 0]
-        log_spec = _log_mel_frames(padded, num_frames)
+        log_spec = _log_mel_frames(padded, num_frames, n_mels)
     else:
         # fast path: only the frames overlapping [0, N) carry signal
         n_real = min(num_frames, -(-(N + half) // HOP_LENGTH))
         right_pad = (n_real - 1) * HOP_LENGTH + N_FFT - half - N
         padded = F.pad(audio, (0, max(0, right_pad)))
         padded = F.pad(padded[:, None], (half, 0), mode="reflect")[:, 0]
-        real = _log_mel_frames(padded, n_real)  # (B, 80, n_real)
-        fill = torch.full((B, N_MELS, num_frames - n_real), _LOG_FLOOR, dtype=audio.dtype, device=audio.device)
+        real = _log_mel_frames(padded, n_real, n_mels)  # (B, n_mels, n_real)
+        fill = torch.full((B, n_mels, num_frames - n_real), _LOG_FLOOR, dtype=audio.dtype, device=audio.device)
         log_spec = torch.cat([real, fill], dim=-1)
     # per-sample dynamic-range clamp and affine scaling
     max_val = log_spec.amax(dim=(-2, -1), keepdim=True)

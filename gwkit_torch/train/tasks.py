@@ -68,12 +68,14 @@ class Task:
         return {**self.frozen, **self.trainable}
 
     def log_mels(self, strain: torch.Tensor) -> List[torch.Tensor]:
-        """strain (B, D, T) or (B, T) -> one log-mel (B, 80, n_frames) per detector."""
+        """strain (B, D, T) or (B, T) -> one log-mel (B, n_mels, n_frames) per
+        detector, at the encoder's number of mel bins."""
         with annotate("gw.log_mel"):
             audio = resample_timeseries(strain, self.input_sample_rate, 16000)
             if audio.dim() == 2:
                 audio = audio[:, None]
-            mel = lambda a: whisper_log_mel(a, pad_to=self.n_frames * 160, num_frames=self.n_frames)
+            mel = lambda a: whisper_log_mel(a, pad_to=self.n_frames * 160, num_frames=self.n_frames,
+                                            n_mels=self.cfg.encoder.n_mels)
             return [mel(audio[:, i]) for i in range(self.cfg.n_detectors)]
 
     def _embed_feats(self, encoder, adapters, feats: torch.Tensor) -> torch.Tensor:

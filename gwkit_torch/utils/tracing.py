@@ -10,7 +10,8 @@ The port opens its own spans, named ``gw.<layer>``, at the entry of each
 layer of the search and the classifiers (``gw.h2d``, ``gw.whiten``,
 ``gw.windows``, ``gw.triggers``, ``gw.qscan``, ``gw.qadapter``,
 ``gw.qfront_graph`` (a replay of the two as one CUDA graph),
-``gw.log_mel``, ``gw.encoder``, ``gw.head``, ``gw.cluster``); a profiler
+``gw.log_mel``, ``gw.encoder``, ``gw.mlp`` (a layer's MLP as two launches
+of kernel B, past kernel C's widths), ``gw.head``, ``gw.cluster``); a profiler
 session is their only switch. They are recorded as function records
 (``cpu_op`` in the trace, like the ATen operations nested in them), not as
 ``user_annotation`` ranges, so that a caller's own ``record_function``
@@ -36,10 +37,12 @@ from torch.autograd import profiler as _autograd_profiler
 # kernel library's load, a front-end graph's capture), and the card's
 # gradient-free Q-scan and Q-adapter calls: ``qadapter_graph_captures``,
 # ``qadapter_graph_replays`` (a capturing call replays too) and
-# ``qadapter_eager_calls``.
+# ``qadapter_eager_calls``; and the encoder layers on the kernel chain by
+# the route of their MLP: ``mlp_fused_layers`` (kernel C) and
+# ``mlp_split_layers`` (two launches of kernel B).
 COUNTERS: Dict[str, int] = {"windows": 0, "padded_windows": 0, "h2d_bytes": 0, "builds": 0,
                             "qadapter_graph_captures": 0, "qadapter_graph_replays": 0,
-                            "qadapter_eager_calls": 0}
+                            "qadapter_eager_calls": 0, "mlp_fused_layers": 0, "mlp_split_layers": 0}
 
 _NO_SPAN = contextlib.nullcontext()
 

@@ -40,11 +40,7 @@ def _two_pass_library():
         _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-DGW_TWO_PASS_ONLY", "-I", str(_cuda.CSRC),
                         "-o", str(path), str(_cuda.CSRC / "attention.cu")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(path))
-    name, argtypes = _cuda._SIGNATURES["attention"]
-    getattr(lib, name).argtypes = argtypes
-    getattr(lib, name).restype = ctypes.c_int
-    return lib
+    return _cuda.bind(ctypes.CDLL(str(path)), "attention")
 
 
 def main():

@@ -59,11 +59,7 @@ def _libraries():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{name} cluster {n}: nvcc failed\n{log.decode()[-4000:]}")
-        lib = ctypes.CDLL(str(path))
-        fn, argtypes = _cuda._SIGNATURES[name]
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-        libs[(name, n)] = lib
+        libs[(name, n)] = _cuda.bind(ctypes.CDLL(str(path)), name)
     return libs
 
 
