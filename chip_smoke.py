@@ -619,12 +619,13 @@ def _within_plain(checks, name, got, plain, want, rms_x, max_x, **extra):
 
 
 def _counted(fn):
-    """(result, launches, plain calls, MLP counters) of one call of ``fn``."""
+    """(result, launches, plain calls, MLP counters and kernel B's streamed
+    launches) of one call of ``fn``."""
     from gwkit_torch.utils.tracing import COUNTERS
 
     torch.cuda.synchronize()
     _cuda.reset_counts()
-    before = {k: COUNTERS[k] for k in ("mlp_split_layers", "mlp_fused_layers")}
+    before = {k: COUNTERS[k] for k in ("mlp_split_layers", "mlp_fused_layers", "ln_gemm_streamed_launches")}
     out = fn()
     torch.cuda.synchronize()
     return out, dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS), {k: COUNTERS[k] - v for k, v in before.items()}
@@ -705,7 +706,8 @@ def large_v3_phase(checks, smi):
     with torch.no_grad():
         got, launches, plain_calls, mlp = _counted(lambda: FB.fused_layer_apply(xb, layer, approx=True))
         ok = (launches == {"attention": 1, "attention_bwd": 0, "ln_gemm": 4, "fused_mlp": 0, "int8_gemm": 0}
-              and not plain_calls and mlp == {"mlp_split_layers": 1, "mlp_fused_layers": 0})
+              and not plain_calls
+              and mlp == {"mlp_split_layers": 1, "mlp_fused_layers": 0, "ln_gemm_streamed_launches": 4})
         emit("large_v3_layer", launches=launches, plain_calls=plain_calls, mlp_counters=mlp, ok=ok)
         if not ok:
             checks.failed.append("large-v3 layer: not 4 B + 1 A with the MLP split and no plain call")
@@ -735,7 +737,8 @@ def large_v3_phase(checks, smi):
     logits, launches, plain_calls, mlp = _counted(lambda: task.forward(strain))
     nl = LV3_LAYERS
     ok = (launches == {"attention": nl, "attention_bwd": 0, "ln_gemm": 4 * nl, "fused_mlp": 0, "int8_gemm": 0}
-          and not plain_calls and mlp == {"mlp_split_layers": nl, "mlp_fused_layers": 0}
+          and not plain_calls
+          and mlp == {"mlp_split_layers": nl, "mlp_fused_layers": 0, "ln_gemm_streamed_launches": 4 * nl}
           and tuple(logits.shape) == (Bs // 2, 1) and bool(torch.isfinite(logits).all()))
     ms = median_ms(lambda: task.forward(strain), 5)
     emit("large_v3_forward", card=smi, recipe="Signal_vs_Noise, --encoder large-v3 (random, torch seed 0), DoRA r=8 "
@@ -3558,6 +3561,9 @@ def main():
     int8_arithmetic_check(checks)
     records = parity_phase(checks)
     records["ln_gemm_wide"], large_v3 = large_v3_phase(checks, smi)
+    from gwkit_torch.utils.tracing import COUNTERS
+
+    streamed_before_tiny = COUNTERS["ln_gemm_streamed_launches"]
     records["attention_bwd"] = attention_bwd_phase(checks)
     layer_grad_phase(checks)
     records["int8_gemm"] = int8_phase(checks)
@@ -3576,6 +3582,11 @@ def main():
     search_generated = generation_phase(checks, smi, bf16_search)
     search_pipeline, train_pipeline = pipeline_phase(checks, smi, bf16_search)
     search_decimated = utils_phase(checks, smi, bf16_search)
+    # the Whisper-tiny paths (D = 384) keep B's panel kernel and kernel C
+    streamed_tiny = COUNTERS["ln_gemm_streamed_launches"] - streamed_before_tiny
+    emit("streamed_launches", whisper_tiny_phases=streamed_tiny, ok=streamed_tiny == 0)
+    if streamed_tiny:
+        checks.failed.append(f"{streamed_tiny} launches of kernel B's streamed kernel on the Whisper-tiny paths")
     kernels = []
     for name in KERNELS:
         r = records[name]

@@ -45,7 +45,8 @@ _SIGNATURES = {
     "attention": (("gw_attention", [_P] * 7 + [_I] * 8 + [_P]),),
     "attention_bwd": (("gw_attention_bwd", [_P] * 11 + [_I] * 8 + [_P]),),
     "ln_gemm": (("gw_ln_gemm", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-                ("gw_ln_gemm_wide", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])),
+                ("gw_ln_gemm_wide", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                ("gw_ln_gemm_wide_clusters", [_P] * 4)),
     "fused_mlp": (("gw_fused_mlp", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),),
     "int8_gemm": (("gw_int8_gemm", [_P] * 11 + [_I] * 5 + [_P]),),
 }

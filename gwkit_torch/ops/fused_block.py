@@ -237,6 +237,7 @@ def _launch_ln_gemm_wide(lib, stream: int, x2, w, colsum, bias, residual, y, act
                               y.data_ptr(), M, N, K, ACTS[act], stream)
     _cuda.check(err, "ln_gemm")
     _cuda.LAUNCHES["ln_gemm"] += 1
+    COUNTERS["ln_gemm_streamed_launches"] += 1
 
 
 def ln_gemm(x2: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,

@@ -37,12 +37,15 @@ from torch.autograd import profiler as _autograd_profiler
 # kernel library's load, a front-end graph's capture), and the card's
 # gradient-free Q-scan and Q-adapter calls: ``qadapter_graph_captures``,
 # ``qadapter_graph_replays`` (a capturing call replays too) and
-# ``qadapter_eager_calls``; and the encoder layers on the kernel chain by
-# the route of their MLP: ``mlp_fused_layers`` (kernel C) and
-# ``mlp_split_layers`` (two launches of kernel B).
+# ``qadapter_eager_calls``; the encoder layers on the kernel chain by the
+# route of their MLP: ``mlp_fused_layers`` (kernel C) and
+# ``mlp_split_layers`` (two launches of kernel B); and
+# ``ln_gemm_streamed_launches``, the launches of kernel B's streamed kernel
+# (a subset of ``_cuda.LAUNCHES["ln_gemm"]``, which counts both of B's).
 COUNTERS: Dict[str, int] = {"windows": 0, "padded_windows": 0, "h2d_bytes": 0, "builds": 0,
                             "qadapter_graph_captures": 0, "qadapter_graph_replays": 0,
-                            "qadapter_eager_calls": 0, "mlp_fused_layers": 0, "mlp_split_layers": 0}
+                            "qadapter_eager_calls": 0, "mlp_fused_layers": 0, "mlp_split_layers": 0,
+                            "ln_gemm_streamed_launches": 0}
 
 _NO_SPAN = contextlib.nullcontext()
 

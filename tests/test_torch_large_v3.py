@@ -15,7 +15,8 @@ the counts of the new cell's launches; the split share's reader.
 
 On a card (``-m card``; each skips without CUDA): kernel B's streamed path
 at each of a 1280-wide layer's four launches against its plain version,
-with ragged M; the panel path at K = 384 and 512 unchanged; one large-v3
+with ragged M, and at its edges (ragged N, one slice, a GELU with a
+residual, unequal warpgroup tiles, a row mean of 30 sigma); the panel path at K = 384 and 512 unchanged; one large-v3
 layer on the chain against ``_reference_block``; the planted faults failing
 the new cell's check. The file imports no JAX, so the card tests run where
 there is none::
@@ -228,19 +229,29 @@ def test_wide_route_refusals():
         fb.ln_gemm(x[0], p["fc1"]["w"], p["fc1"]["b"], act="relu")
 
 
+def _pairwise(p: torch.Tensor) -> torch.Tensor:
+    """The kernel's sum of 16 values: adjacent pairs, then p[e] + p[e + k]
+    for k = 4, 2, 1."""
+    p = p[..., 0::2] + p[..., 1::2]
+    for k in (4, 2, 1):
+        p = p[..., :k] + p[..., k:2 * k]
+    return p[..., 0]
+
+
 def _kernel_stats(x: torch.Tensor):
     """The streamed kernel's row statistics, emulated: each of a quad's four
-    lanes takes 16 columns of every 64-column slice, updates a running mean
-    and sum of squared deviations by Chan's rule (float32), then the lanes
-    combine pairwise."""
+    lanes (of the statistics warpgroup) takes 16 columns of every 64-column
+    slice, sums them and their squared deviations pairwise, updates a
+    running mean and sum of squared deviations by Chan's rule (float32),
+    then the lanes combine pairwise."""
     M, K = x.shape
     lanes = x.float().view(M, K // 64, 4, 16)
     mean = torch.zeros(M, 4)
     m2 = torch.zeros(M, 4)
     for s in range(K // 64):
         v = lanes[:, s]
-        mb = v.sum(-1) * (1.0 / 16.0)
-        q = (v - mb[..., None]).square().sum(-1)
+        mb = _pairwise(v) * (1.0 / 16.0)
+        q = _pairwise((v - mb[..., None]).square())
         n = 16.0 * s
         delta = mb - mean
         mean = mean + delta * (16.0 / (n + 16.0))
@@ -281,6 +292,26 @@ def test_streamed_kernel_ln_fold_emulated(offset):
     err = (got - want).abs().max()
     plain = (fb._ln_gemm_reference(x, w, bias, ln).double() - want).abs().max()
     assert err < 2 ** -8 * want.abs().max() and err < 2 * plain
+
+
+def test_streamed_launch_counter(monkeypatch):
+    """Each launch of the streamed kernel adds one to
+    ``COUNTERS["ln_gemm_streamed_launches"]`` beside ``LAUNCHES["ln_gemm"]``
+    (a stand-in library that accepts the call, as the card's does)."""
+    calls = []
+
+    class Lib:
+        def gw_ln_gemm_wide(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setitem(COUNTERS, "ln_gemm_streamed_launches", 7)
+    _cuda.reset_counts()
+    x, w, bias = torch.zeros(3, 64).bfloat16(), torch.zeros(64, 8).bfloat16(), torch.zeros(8)
+    y = torch.empty(3, 8).bfloat16()
+    fb._launch_ln_gemm_wide(Lib(), 0, x, w, None, bias, None, y, "tanh")
+    assert COUNTERS["ln_gemm_streamed_launches"] == 8 and _cuda.LAUNCHES["ln_gemm"] == 1
+    assert calls[0][6:10] == (3, 8, 64, fb.ACTS["tanh"]) and calls[0][2] is None and calls[0][4] is None
 
 
 def test_plain_gelu_epilogue_rounds_as_kernel_c():
@@ -356,16 +387,42 @@ def card():
 
 
 WIDE_M = 16 * 1500 + 17  # a batch of 8 two-detector samples at 1500 tokens, and a ragged panel
-# (name, K, N, LayerNorm, residual, GELU): a 1280-wide layer's four launches of kernel B
-WIDE_LAUNCHES = [("qkv", 1280, 3840, True, False, None), ("o", 1280, 1280, False, True, None),
-                 ("fc1_tanh", 1280, 5120, True, False, "tanh"), ("fc1_erf", 1280, 5120, True, False, "erf"),
-                 ("fc2", 5120, 1280, False, True, None)]
+# (name, M, K, N, LayerNorm, residual, GELU, row mean in standard deviations):
+# a 1280-wide layer's four launches of kernel B, then the streamed kernel's
+# edges: N of no tile width, K of one slice and of ten, a GELU with a
+# residual, a grid that leaves the two consumer
+# warpgroups unequal numbers of tiles (M from the card's cluster count: None),
+# and a row mean of 30 standard deviations
+WIDE_LAUNCHES = [("qkv", WIDE_M, 1280, 3840, True, False, None, 0.0),
+                 ("o", WIDE_M, 1280, 1280, False, True, None, 0.0),
+                 ("fc1_tanh", WIDE_M, 1280, 5120, True, False, "tanh", 0.0),
+                 ("fc1_erf", WIDE_M, 1280, 5120, True, False, "erf", 0.0),
+                 ("fc2", WIDE_M, 5120, 1280, False, True, None, 0.0),
+                 ("ragged_one_slice", 200, 64, 136, True, False, "tanh", 0.0),
+                 ("ragged", 333, 640, 200, False, True, None, 0.0),
+                 ("ragged_gelu_residual", 333, 640, 200, True, True, "erf", 0.0),
+                 ("unequal_tiles", None, 1280, 1280, False, False, "tanh", 0.0),
+                 ("mean_30_sigma", 4000, 1280, 1280, True, False, "tanh", 30.0)]
 
 
-def _operands(M, K, N, ln, res, dev, seed=0):
+def _unequal_rows(K, N):
+    """Rows that give every cluster of the streamed kernel three items (of
+    one tile a block: no LayerNorm), so that in each block the first
+    consumer warpgroup takes two tiles and the second one, with a ragged
+    last panel."""
+    import ctypes
+
+    v = [ctypes.c_int() for _ in range(4)]
+    _cuda.check(_cuda.library("ln_gemm").gw_ln_gemm_wide_clusters(*(ctypes.byref(c) for c in v)), "ln_gemm")
+    cluster, rows, cols, clusters = (c.value for c in v)
+    groups = -(-3 * clusters // -(-N // cols))  # cluster items along M
+    return groups * cluster * rows - 37
+
+
+def _operands(M, K, N, ln, res, dev, seed=0, offset=0.0):
     g = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *s, std=1.0: torch.randn(*s, generator=g, device=dev) * std
-    x = r(M, K).bfloat16()
+    x = (r(M, K) + offset).bfloat16()
     w = r(K, N, std=K ** -0.5).bfloat16()
     bias = r(N, std=0.1)
     lnp = ((1 + r(K, std=0.1)).bfloat16(), r(K, std=0.1).bfloat16()) if ln else None
@@ -390,19 +447,20 @@ def _rms(t):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("name,K,N,ln,res,act", WIDE_LAUNCHES, ids=[c[0] for c in WIDE_LAUNCHES])
-def test_streamed_kernel_b_at_a_wide_layers_launches(card, name, K, N, ln, res, act):
+@pytest.mark.parametrize("name,M,K,N,ln,res,act,offset", WIDE_LAUNCHES, ids=[c[0] for c in WIDE_LAUNCHES])
+def test_streamed_kernel_b_at_a_wide_layers_launches(card, name, M, K, N, ln, res, act, offset):
     """One launch of the streamed kernel; its error against the float64
     function no larger than the plain bf16 version's own: rms within 1.1x,
     largest within 1.5x (measured 0.70-1.00x and 0.76-1.00x on an H100).
     Without LayerNorm both round the same f32 sum once; with it the kernel
     keeps x exact and rounds g (.) W, where the plain version rounds LN(x)
     three times, so it reads lower."""
-    x, w, bias, lnp, r = _operands(WIDE_M, K, N, ln, res, card)
-    before = _cuda.LAUNCHES["ln_gemm"]
+    x, w, bias, lnp, r = _operands(M if M is not None else _unequal_rows(K, N), K, N, ln, res, card, offset=offset)
+    before, streamed = _cuda.LAUNCHES["ln_gemm"], COUNTERS["ln_gemm_streamed_launches"]
     y = fb.ln_gemm(x, w, bias, ln=lnp, residual=r, act=act)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["ln_gemm"] - before == 1 and bool(torch.isfinite(y).all())
+    assert _cuda.LAUNCHES["ln_gemm"] - before == 1 and COUNTERS["ln_gemm_streamed_launches"] - streamed == 1
+    assert bool(torch.isfinite(y).all())
     want = _exact(x, w, bias, lnp, r, act)
     err, plain = y.double() - want, fb._ln_gemm_reference(x, w, bias, lnp, r, act).double() - want
     assert _rms(err) <= 1.1 * _rms(plain), (_rms(err), _rms(plain))
@@ -452,12 +510,15 @@ def test_large_v3_layer_on_the_chain(card):
     x = n(4, 1500, D, std=1.0)
     with torch.no_grad():
         _cuda.reset_counts()
+        streamed = COUNTERS["ln_gemm_streamed_launches"]
         got = fb.fused_layer_apply(x.bfloat16(), fb.fold_layer(p, ad, H, torch.bfloat16), approx=True)
         torch.cuda.synchronize()
         launches, plain_calls = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+        streamed = COUNTERS["ln_gemm_streamed_launches"] - streamed
         want = fb._reference_block(x, p, ad, H, approx=True)
         plain = fb._reference_block(x.bfloat16(), p, ad, H, approx=True)
     assert (launches["ln_gemm"], launches["attention"], launches["fused_mlp"]) == (4, 1, 0) and not plain_calls
+    assert streamed == 4  # all four of B's launches on its streamed kernel
     err, perr = got.float() - want, plain.float() - want
     assert _rms(err) <= 1.25 * _rms(perr) and float(err.abs().max()) <= 1.5 * float(perr.abs().max())
 
