@@ -134,10 +134,14 @@ def load_task_from_components(
     ``device=None`` is the CUDA card (raises without one). On CUDA the
     encoder runs in bf16 with tanh GELU and every layer on the kernel chain;
     on the CPU in f32 with erf GELU and the unfused layer math, as gwkit on a
-    TPU and on the CPU. ``compute_dtype`` overrides (e.g. f32, to hold the
-    bf16 search against it). ``quant_int8`` puts the projections of every
-    layer on int8 on the card; on the CPU it does nothing and warns, as
-    gwkit's ``quant_int8 and on_tpu``."""
+    TPU and on the CPU. ``compute_dtype`` overrides the dtype; on the card
+    the kernel chain takes bf16 only, so ``compute_dtype=torch.float32``
+    there builds a task whose first forward raises ``TypeError``. An f32
+    reference on the card is built from the task's encoder config with
+    ``fused_block=False``, as ``chip_smoke.py`` builds its f32 references,
+    which this function does not offer. ``quant_int8`` puts the
+    projections of every layer on int8 on the card; on the CPU it does
+    nothing and warns, as gwkit's ``quant_int8 and on_tpu``."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     n_frames = int(target_shape[1])

@@ -69,12 +69,6 @@
 // recompute does): each row's exact max m and f32 sum l and the f32 output
 // before its rounding, stored from the epilogue's registers. Kernel D
 // (attention_bwd.cu) reads them instead of recomputing them.
-//
-// float32 (attention_kernel, CPU-equivalent checks and the f32 tasks):
-// plain f32 FMA (wgmma has no full-f32 mode and TF32 would break the f32
-// tolerances). One block per (64-query tile, sequence-head); K and V stream
-// through double-buffered shared memory in 64-key tiles (cp.async); two
-// passes over the key tiles give the exact max.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -85,147 +79,6 @@ using hopper::mask_cols;
 using hopper::quad_max;
 using hopper::quad_sum;
 using hopper::quad_transpose;
-
-// ---- float32: FMA tiles in shared memory -------------------------------------
-
-template <typename T> struct Attn {
-  static constexpr int HD = 64, BQ = 64, BKV = 64;
-  static constexpr int LDT = HD + Pad<T>::v;  // q/k/v tiles
-  static constexpr int LDS = BKV + 4;         // f32 scores / output
-  static constexpr int LDP = BKV + Pad<T>::v; // probabilities
-  static constexpr size_t TILE = align128((size_t)BQ * LDT * sizeof(T));
-  static constexpr size_t SS = align128((size_t)BQ * LDS * sizeof(float));
-  static constexpr size_t PS = align128((size_t)BQ * LDP * sizeof(T));
-  static constexpr size_t SMEM = 5 * TILE + SS + PS + 2 * align128(BQ * sizeof(float));
-};
-
-template <typename T, bool K1>
-__global__ void __launch_bounds__(kThreads)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int T_len, int H, int ld_in, int ld_out) {
-  typedef Attn<T> L;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks[2] = {reinterpret_cast<T*>(smem + L::TILE), reinterpret_cast<T*>(smem + 2 * L::TILE)};
-  T* Vs[2] = {reinterpret_cast<T*>(smem + 3 * L::TILE), reinterpret_cast<T*>(smem + 4 * L::TILE)};
-  float* Ss = reinterpret_cast<float*>(smem + 5 * L::TILE);
-  T* Ps = reinterpret_cast<T*>(smem + 5 * L::TILE + L::SS);
-  float* mrow = reinterpret_cast<float*>(smem + 5 * L::TILE + L::SS + L::PS);
-  float* lrow = mrow + align128(L::BQ * sizeof(float)) / sizeof(float);
-
-  const int t0 = blockIdx.x * L::BQ;
-  const int bh = blockIdx.y, seq = bh / H, head = bh - seq * H;
-  const long long base_in = (long long)seq * T_len * ld_in + (long long)head * L::HD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int kRowsPerWarp = L::BQ / kWarps;
-  const int n_tiles = (T_len + L::BKV - 1) / L::BKV;
-
-  // Stages 0..n-1 stream K tiles for pass 1 (exact row max); stages n..2n-1
-  // stream K and V tiles again for pass 2. Stage st uses buffer st & 1, and
-  // stage st + 1 is copied while stage st computes.
-  auto issue = [&](int st) {
-    const int k0 = (st < n_tiles ? st : st - n_tiles) * L::BKV;
-    const long long off = base_in + (long long)k0 * ld_in;
-    load_tile_async(Ks[st & 1], L::LDT, k + off, ld_in, L::BKV, L::HD, T_len - k0, L::HD);
-    if (st >= n_tiles)
-      load_tile_async(Vs[st & 1], L::LDT, v + off, ld_in, L::BKV, L::HD, T_len - k0, L::HD);
-  };
-
-  load_tile_async(Qs, L::LDT, q + base_in + (long long)t0 * ld_in, ld_in, L::BQ, L::HD, T_len - t0, L::HD);
-  cp_async_commit();
-  issue(0);
-  cp_async_commit();
-  if (threadIdx.x < L::BQ) {
-    mrow[threadIdx.x] = -INFINITY;
-    lrow[threadIdx.x] = 0.f;
-  }
-
-  Acc<T, L::BQ, L::BKV> s;
-  Acc<T, L::BQ, L::HD> acc;
-  acc.zero();
-  for (int st = 0; st < 2 * n_tiles; ++st) {
-    if (st + 1 < 2 * n_tiles) issue(st + 1);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    const int buf = st & 1;
-    const int k0 = (st < n_tiles ? st : st - n_tiles) * L::BKV;
-    s.zero();
-    s.template mma<true>(Qs, L::LDT, Ks[buf], L::LDT, L::HD);
-    s.store(Ss, L::LDS);
-    __syncthreads();
-    if (st < n_tiles) {  // pass 1: running exact max of the masked scores
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const int r = warp * kRowsPerWarp + rr;
-        float mx = -INFINITY;
-        for (int c = lane; c < L::BKV; c += 32)
-          if (k0 + c < T_len) mx = fmaxf(mx, Ss[r * L::LDS + c]);
-        mx = warp_max(mx);
-        const float m_old = mrow[r], m_new = fmaxf(m_old, mx);
-        if (K1) {  // the f32 row sum of exp(s - m), rescaled to the new max
-          float sum = 0.f;
-          for (int c = lane; c < L::BKV; c += 32)
-            if (k0 + c < T_len) sum += expf(Ss[r * L::LDS + c] - m_new);
-          sum = warp_sum(sum);
-          if (lane == 0) lrow[r] = lrow[r] * expf(m_old - m_new) + sum;
-        }
-        __syncwarp();
-        if (lane == 0) mrow[r] = m_new;
-      }
-    } else {
-      if (K1) {  // pass 2: p = round(exp(s - m) / l) from f32, o += p . V in f32
-        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-          const int r = warp * kRowsPerWarp + rr;
-          const float m = mrow[r], l = lrow[r];
-          for (int c = lane; c < L::BKV; c += 32)
-            Ps[r * L::LDP + c] = from_f<T>(k0 + c < T_len ? expf(Ss[r * L::LDS + c] - m) / l : 0.f);
-        }
-      } else {  // pass 2: p = exp(round(s - m)) in T, f32 row sums, o += p . V in f32
-        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-          const int r = warp * kRowsPerWarp + rr;
-          const float m = mrow[r];
-          float sum = 0.f;
-          for (int c = lane; c < L::BKV; c += 32) {
-            float p = 0.f;
-            if (k0 + c < T_len) p = rnd<T>(expf(rnd<T>(Ss[r * L::LDS + c] - m)));
-            Ps[r * L::LDP + c] = from_f<T>(p);
-            sum += p;
-          }
-          sum = warp_sum(sum);
-          if (lane == 0) lrow[r] += sum;
-        }
-      }
-      __syncthreads();
-      acc.template mma<false>(Ps, L::LDP, Vs[buf], L::LDT, L::BKV);
-    }
-    __syncthreads();
-  }
-
-  acc.store(Ss, L::LDS);
-  __syncthreads();
-  const long long base_out = (long long)seq * T_len * ld_out + (long long)head * L::HD;
-  for (int e = threadIdx.x; e < L::BQ * L::HD; e += kThreads) {
-    const int r = e / L::HD, c = e - r * L::HD;
-    const int t = t0 + r;
-    if (t < T_len)
-      o[base_out + (long long)t * ld_out + c] =
-          from_f<T>(K1 ? Ss[r * L::LDS + c] : Ss[r * L::LDS + c] / lrow[r]);
-  }
-}
-
-template <bool K1>
-static int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int T_len,
-                      int H, int ld_in, int ld_out, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<float, K1>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)Attn<float>::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T_len + Attn<float>::BQ - 1) / Attn<float>::BQ, B * H);
-  attention_kernel<float, K1><<<grid, kThreads, Attn<float>::SMEM, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), T_len, H, ld_in, ld_out);
-  return (int)cudaGetLastError();
-}
 
 // ---- bfloat16: wgmma, TMA, scores in registers -------------------------------
 
@@ -726,8 +579,9 @@ extern "C" int gw_attention_exp_bf16(void* out, void* stream) {
 // projection passes its three column blocks with ld_in = 3*H*64); o likewise
 // with ld_out. Head dim 64; ld_in and ld_out multiples of 8 and the pointers
 // 16-byte aligned. k1 = 1 takes K1's softmax contract, 0 K3's (see the top
-// of this file).
-// row_m, row_l, o32: null, or (bf16 under K1 only) the row state the
+// of this file). dtype must be GW_BF16: the kernel takes bfloat16 only, and
+// any other value returns cudaErrorInvalidValue.
+// row_m, row_l, o32: null, or (under K1 only) the row state the
 // backward (attention_bwd.cu) reads instead of recomputing it: the exact
 // row max and the f32 row sum, B*H x ld_state f32 each (ld_state, the
 // caller's, must be T rounded up to 64; every row below it is written, rows
@@ -739,15 +593,11 @@ extern "C" int gw_attention(const void* q, const void* k, const void* v, void* o
                             void* row_l, void* o32, int B, int T_len, int H, int ld_in, int ld_out,
                             int ld_state, int dtype, int k1, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T_len <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T_len <= 0 || H <= 0 || dtype != GW_BF16) return (int)cudaErrorInvalidValue;
   const bool save = row_m != nullptr || row_l != nullptr || o32 != nullptr;
-  if (save && (row_m == nullptr || row_l == nullptr || o32 == nullptr || dtype != GW_BF16 || !k1 ||
+  if (save && (row_m == nullptr || row_l == nullptr || o32 == nullptr || !k1 ||
                ld_state != (T_len + 63) / 64 * 64))
     return (int)cudaErrorInvalidValue;
-  if (dtype == GW_F32)
-    return k1 ? gw::launch_f32<true>(q, k, v, o, B, T_len, H, ld_in, ld_out, s)
-              : gw::launch_f32<false>(q, k, v, o, B, T_len, H, ld_in, ld_out, s);
   float* const state[3] = {static_cast<float*>(row_m), static_cast<float*>(row_l), static_cast<float*>(o32)};
-  if (dtype == GW_BF16) return gw::launch_bf16(q, k, v, o, B, T_len, H, ld_in, ld_out, k1, state, ld_state, s);
-  return (int)cudaErrorInvalidValue;
+  return gw::launch_bf16(q, k, v, o, B, T_len, H, ld_in, ld_out, k1, state, ld_state, s);
 }

@@ -41,299 +41,20 @@
 //    P^T and dS^T in registers are the A fragments of dV += round(P^T) dO
 //    and dK += dS^T Q (RS, dO and Q read MN-major). 1/l comes from the first
 //    launch: taking it with __frcp_rn in this loop made D 15-22% slower.
-// Seven products instead of the f32 path's ten, one exp and one division a
-// score in each launch instead of four exps and three divisions in all, and
-// no score goes through shared memory. A warpgroup waits for its products
-// before it touches their registers (no product is in flight across a
-// branch); the other warpgroup of the SM (the second block, or the second
-// consumer) computes while it waits. No float atomics: each output element
+// Seven products instead of the ten of a backward that recomputes the row
+// state, one exp and one division a score in each launch instead of four
+// exps and three divisions in all, and no score goes through shared
+// memory. A warpgroup waits for its products before it touches their
+// registers (no product is in flight across a branch); the other warpgroup
+// of the SM (the second block, or the second consumer) computes while it
+// waits. No float atomics: each output element
 // is one block's sum in a fixed order, so two runs give the same bits.
-//
-// float32 (dq_kernel, dkdv_kernel; CPU-equivalent checks and the f32 tasks):
-// FMA products (no TF32), FlashAttention-2's split, the row state
-// recomputed.
-//  * dq_kernel: one block per (64-query tile, sequence-head). K and V stream
-//    through double-buffered shared memory in 64-key tiles (cp.async), three
-//    passes: (1) the exact row max with the online f32 row sum, (2) o = p_lo V
-//    and then D, (3) dS and dQ += dS K. It writes m, l and D of its rows to a
-//    (3, BH, Tp) f32 scratch for the second launch.
-//  * dkdv_kernel: one block per (64-key tile, sequence-head) holds its K and
-//    V tiles and walks the query tiles (Q, dO and the row statistics
-//    double-buffered), computing S^T = K Q^T and dP^T = V dO^T so that P^T
-//    and dS^T land in shared memory as the A operands of dV += P^T dO and
-//    dK += dS^T Q; dK and dV accumulate in f32 registers.
 // q, k, v and dO are read in place through row strides (the fused QKV
 // projection passes its column blocks), as kernel A reads them.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace gw {
-
-// ---- float32: FMA tiles in shared memory --------------------------------------
-
-struct Bwd {
-  static constexpr int HD = 64, BQ = 64, BKV = 64;
-  static constexpr int LDT = HD + Pad<float>::v;   // q/k/v/dO tiles
-  static constexpr int LDS = BKV + 4;              // f32 scores, dP, o
-  static constexpr int LDP = BKV + Pad<float>::v;  // probabilities, dS
-  static constexpr size_t TILE = align128((size_t)BQ * LDT * sizeof(float));
-  static constexpr size_t SS = align128((size_t)BQ * LDS * sizeof(float));
-  static constexpr size_t PS = align128((size_t)BQ * LDP * sizeof(float));
-  static constexpr size_t ROW = align128(BQ * sizeof(float));
-  // dq: Q, dO, K x2, V x2 | S, dP | P/dS | m, l, D
-  static constexpr size_t SMEM_DQ = 6 * TILE + 2 * SS + PS + 3 * ROW;
-  // dkdv: K, V, Q x2, dO x2 | S^T, dP^T | P^T, dS^T | (m, l, D) x2
-  static constexpr size_t SMEM_DKDV = 6 * TILE + 2 * SS + 2 * PS + 6 * ROW;
-};
-
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-          const float* __restrict__ dout, float* __restrict__ dq, float* __restrict__ stats, int T_len,
-          int Tp, int H, int ld_in, int ld_do, int ld_out) {
-  typedef Bwd L;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* dOs = reinterpret_cast<float*>(smem + L::TILE);
-  float* Ks[2] = {reinterpret_cast<float*>(smem + 2 * L::TILE),
-                   reinterpret_cast<float*>(smem + 3 * L::TILE)};
-  float* Vs[2] = {reinterpret_cast<float*>(smem + 4 * L::TILE),
-                   reinterpret_cast<float*>(smem + 5 * L::TILE)};
-  float* Ss = reinterpret_cast<float*>(smem + 6 * L::TILE);
-  float* dPs = reinterpret_cast<float*>(smem + 6 * L::TILE + L::SS);
-  float* Ps = reinterpret_cast<float*>(smem + 6 * L::TILE + 2 * L::SS);
-  float* mrow = reinterpret_cast<float*>(smem + 6 * L::TILE + 2 * L::SS + L::PS);
-  float* lrow = mrow + L::ROW / sizeof(float);
-  float* drow = lrow + L::ROW / sizeof(float);
-
-  const int t0 = blockIdx.x * L::BQ;
-  const int bh = blockIdx.y, seq = bh / H, head = bh - seq * H;
-  const long long base_in = (long long)seq * T_len * ld_in + (long long)head * L::HD;
-  const long long base_do = (long long)seq * T_len * ld_do + (long long)head * L::HD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int kRowsPerWarp = L::BQ / kWarps;
-  const int n_tiles = (T_len + L::BKV - 1) / L::BKV;
-
-  // stage st streams key tile st % n_tiles of pass st / n_tiles: K alone for
-  // pass 0 (row statistics), K and V for passes 1 (o, D) and 2 (dQ)
-  auto issue = [&](int st) {
-    const int pass = st / n_tiles;
-    const int k0 = (st - pass * n_tiles) * L::BKV;
-    const long long off = base_in + (long long)k0 * ld_in;
-    load_tile_async(Ks[st & 1], L::LDT, k + off, ld_in, L::BKV, L::HD, T_len - k0, L::HD);
-    if (pass > 0)
-      load_tile_async(Vs[st & 1], L::LDT, v + off, ld_in, L::BKV, L::HD, T_len - k0, L::HD);
-  };
-
-  load_tile_async(Qs, L::LDT, q + base_in + (long long)t0 * ld_in, ld_in, L::BQ, L::HD, T_len - t0, L::HD);
-  load_tile_async(dOs, L::LDT, dout + base_do + (long long)t0 * ld_do, ld_do, L::BQ, L::HD, T_len - t0,
-                  L::HD);
-  cp_async_commit();
-  issue(0);
-  cp_async_commit();
-  if (threadIdx.x < L::BQ) {
-    mrow[threadIdx.x] = -INFINITY;
-    lrow[threadIdx.x] = 0.f;
-  }
-
-  Acc<float, L::BQ, L::BKV> s, dp;
-  Acc<float, L::BQ, L::HD> acc;  // o in pass 1, then dQ in pass 2
-  acc.zero();
-  for (int st = 0; st < 3 * n_tiles; ++st) {
-    if (st + 1 < 3 * n_tiles) issue(st + 1);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    const int buf = st & 1, pass = st / n_tiles;
-    const int k0 = (st - pass * n_tiles) * L::BKV;
-    s.zero();
-    s.mma<true>(Qs, L::LDT, Ks[buf], L::LDT, L::HD);
-    s.store(Ss, L::LDS);
-    if (pass == 2) {
-      dp.zero();
-      dp.mma<true>(dOs, L::LDT, Vs[buf], L::LDT, L::HD);
-      dp.store(dPs, L::LDS);
-    }
-    __syncthreads();
-    if (pass == 0) {  // exact running max and the f32 row sum rescaled to it
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const int r = warp * kRowsPerWarp + rr;
-        float mx = -INFINITY;
-        for (int c = lane; c < L::BKV; c += 32)
-          if (k0 + c < T_len) mx = fmaxf(mx, Ss[r * L::LDS + c]);
-        mx = warp_max(mx);
-        const float m_old = mrow[r], m_new = fmaxf(m_old, mx);
-        float sum = 0.f;
-        for (int c = lane; c < L::BKV; c += 32)
-          if (k0 + c < T_len) sum += expf(Ss[r * L::LDS + c] - m_new);
-        sum = warp_sum(sum);
-        __syncwarp();
-        if (lane == 0) {
-          lrow[r] = lrow[r] * expf(m_old - m_new) + sum;
-          mrow[r] = m_new;
-        }
-      }
-    } else if (pass == 1) {  // p_lo = round(exp(s - m) / l); o += p_lo V
-      for (int e = threadIdx.x; e < L::BQ * L::BKV; e += kThreads) {
-        const int r = e / L::BKV, c = e - r * L::BKV;
-        Ps[r * L::LDP + c] = k0 + c < T_len ? expf(Ss[r * L::LDS + c] - mrow[r]) / lrow[r] : 0.f;
-      }
-      __syncthreads();
-      acc.mma<false>(Ps, L::LDP, Vs[buf], L::LDT, L::BKV);
-    } else {  // dS = round(p * (dP - D)); dQ += dS K
-      for (int e = threadIdx.x; e < L::BQ * L::BKV; e += kThreads) {
-        const int r = e / L::BKV, c = e - r * L::BKV;
-        const float p = k0 + c < T_len ? expf(Ss[r * L::LDS + c] - mrow[r]) / lrow[r] : 0.f;
-        Ps[r * L::LDP + c] = p * (dPs[r * L::LDS + c] - drow[r]);
-      }
-      __syncthreads();
-      acc.mma<false>(Ps, L::LDP, Ks[buf], L::LDT, L::BKV);
-    }
-    __syncthreads();
-    if (st == 2 * n_tiles - 1) {  // o is complete: D = rowsum(dO * o) in f32
-      acc.store(dPs, L::LDS);
-      acc.zero();
-      __syncthreads();
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const int r = warp * kRowsPerWarp + rr;
-        float d = 0.f;
-        for (int c = lane; c < L::HD; c += 32) d += dOs[r * L::LDT + c] * dPs[r * L::LDS + c];
-        d = warp_sum(d);
-        if (lane == 0) drow[r] = d;
-      }
-      __syncthreads();
-      if (threadIdx.x < L::BQ) {  // every row of the tile, padding included
-        const long long at = (long long)bh * Tp + t0 + threadIdx.x;
-        const long long plane = (long long)gridDim.y * Tp;
-        stats[at] = mrow[threadIdx.x];
-        stats[plane + at] = lrow[threadIdx.x];
-        stats[2 * plane + at] = drow[threadIdx.x];
-      }
-    }
-  }
-
-  acc.store(Ss, L::LDS);
-  __syncthreads();
-  const long long base_out = (long long)seq * T_len * ld_out + (long long)head * L::HD;
-  for (int e = threadIdx.x; e < L::BQ * L::HD; e += kThreads) {
-    const int r = e / L::HD, c = e - r * L::HD;
-    if (t0 + r < T_len) dq[base_out + (long long)(t0 + r) * ld_out + c] = Ss[r * L::LDS + c];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-            const float* __restrict__ dout, const float* __restrict__ stats, float* __restrict__ dk,
-            float* __restrict__ dv, int T_len, int Tp, int H, int ld_in, int ld_do, int ld_out) {
-  typedef Bwd L;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = reinterpret_cast<float*>(smem + L::TILE);
-  float* Qs[2] = {reinterpret_cast<float*>(smem + 2 * L::TILE),
-                   reinterpret_cast<float*>(smem + 3 * L::TILE)};
-  float* dOs[2] = {reinterpret_cast<float*>(smem + 4 * L::TILE),
-                    reinterpret_cast<float*>(smem + 5 * L::TILE)};
-  float* St = reinterpret_cast<float*>(smem + 6 * L::TILE);
-  float* dPt = reinterpret_cast<float*>(smem + 6 * L::TILE + L::SS);
-  float* Pt = reinterpret_cast<float*>(smem + 6 * L::TILE + 2 * L::SS);
-  float* dSt = reinterpret_cast<float*>(smem + 6 * L::TILE + 2 * L::SS + L::PS);
-  float* rows = reinterpret_cast<float*>(smem + 6 * L::TILE + 2 * L::SS + 2 * L::PS);
-  constexpr int kRow = L::ROW / sizeof(float);  // (m, l, D) of buffer b at rows + (3 b + i) kRow
-
-  const int k0 = blockIdx.x * L::BKV;
-  const int bh = blockIdx.y, seq = bh / H, head = bh - seq * H;
-  const long long base_in = (long long)seq * T_len * ld_in + (long long)head * L::HD;
-  const long long base_do = (long long)seq * T_len * ld_do + (long long)head * L::HD;
-  const long long plane = (long long)gridDim.y * Tp;
-  const int n_tiles = (T_len + L::BQ - 1) / L::BQ;
-
-  auto issue = [&](int j) {
-    const int q0 = j * L::BQ, b = j & 1;
-    load_tile_async(Qs[b], L::LDT, q + base_in + (long long)q0 * ld_in, ld_in, L::BQ, L::HD, T_len - q0, L::HD);
-    load_tile_async(dOs[b], L::LDT, dout + base_do + (long long)q0 * ld_do, ld_do, L::BQ, L::HD, T_len - q0,
-                    L::HD);
-    for (int i = 0; i < 3; ++i)  // the stats rows are padded to Tp: no masking
-      load_tile_async(rows + (3 * b + i) * kRow, L::BQ, stats + i * plane + (long long)bh * Tp + q0, 0, 1,
-                      L::BQ, 1, L::BQ);
-  };
-
-  load_tile_async(Ks, L::LDT, k + base_in + (long long)k0 * ld_in, ld_in, L::BKV, L::HD, T_len - k0, L::HD);
-  load_tile_async(Vs, L::LDT, v + base_in + (long long)k0 * ld_in, ld_in, L::BKV, L::HD, T_len - k0, L::HD);
-  cp_async_commit();
-  issue(0);
-  cp_async_commit();
-
-  Acc<float, L::BKV, L::BQ> s, dp;
-  Acc<float, L::BKV, L::HD> dk_acc, dv_acc;
-  dk_acc.zero();
-  dv_acc.zero();
-  for (int j = 0; j < n_tiles; ++j) {
-    if (j + 1 < n_tiles) issue(j + 1);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    const int b = j & 1, q0 = j * L::BQ;
-    s.zero();
-    s.mma<true>(Ks, L::LDT, Qs[b], L::LDT, L::HD);    // S^T = K Q^T
-    s.store(St, L::LDS);
-    dp.zero();
-    dp.mma<true>(Vs, L::LDT, dOs[b], L::LDT, L::HD);  // dP^T = V dO^T
-    dp.store(dPt, L::LDS);
-    __syncthreads();
-    const float* m = rows + 3 * b * kRow;
-    const float* l = m + kRow;
-    const float* d = l + kRow;
-    for (int e = threadIdx.x; e < L::BKV * L::BQ; e += kThreads) {
-      const int kr = e / L::BQ, qc = e - kr * L::BQ;
-      const bool ok = k0 + kr < T_len && q0 + qc < T_len;
-      const float p = ok ? expf(St[kr * L::LDS + qc] - m[qc]) / l[qc] : 0.f;
-      Pt[kr * L::LDP + qc] = p;
-      dSt[kr * L::LDP + qc] = p * (dPt[kr * L::LDS + qc] - d[qc]);
-    }
-    __syncthreads();
-    dv_acc.mma<false>(Pt, L::LDP, dOs[b], L::LDT, L::BQ);  // dV += P^T dO
-    dk_acc.mma<false>(dSt, L::LDP, Qs[b], L::LDT, L::BQ);  // dK += dS^T Q
-    __syncthreads();
-  }
-
-  const long long base_out = (long long)seq * T_len * ld_out + (long long)head * L::HD;
-  dk_acc.store(St, L::LDS);
-  dv_acc.store(dPt, L::LDS);
-  __syncthreads();
-  for (int e = threadIdx.x; e < L::BKV * L::HD; e += kThreads) {
-    const int r = e / L::HD, c = e - r * L::HD;
-    if (k0 + r < T_len) {
-      const long long at = base_out + (long long)(k0 + r) * ld_out + c;
-      dk[at] = St[r * L::LDS + c];
-      dv[at] = dPt[r * L::LDS + c];
-    }
-  }
-}
-
-static int launch_f32(const void* q, const void* k, const void* v, const void* dout, void* dq,
-                      void* dk, void* dv, void* stats, int B, int T_len, int Tp, int H, int ld_in,
-                      int ld_do, int ld_out, cudaStream_t stream) {
-  typedef Bwd L;
-  cudaError_t err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L::SMEM_DQ);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)L::SMEM_DKDV);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(Tp / L::BQ, B * H);
-  const float* q_ = static_cast<const float*>(q);
-  const float* k_ = static_cast<const float*>(k);
-  const float* v_ = static_cast<const float*>(v);
-  const float* do_ = static_cast<const float*>(dout);
-  dq_kernel<<<grid, kThreads, L::SMEM_DQ, stream>>>(q_, k_, v_, do_, static_cast<float*>(dq),
-                                                   static_cast<float*>(stats), T_len, Tp, H, ld_in, ld_do,
-                                                   ld_out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dkdv_kernel<<<grid, kThreads, L::SMEM_DKDV, stream>>>(q_, k_, v_, do_, static_cast<const float*>(stats),
-                                                       static_cast<float*>(dk), static_cast<float*>(dv), T_len,
-                                                       Tp, H, ld_in, ld_do, ld_out);
-  return (int)cudaGetLastError();
-}
 
 // ---- bfloat16: wgmma, TMA, the forward's row state ------------------------------
 
@@ -719,25 +440,19 @@ static int launch_bf16(const void* q, const void* k, const void* v, const void* 
 // dout with ld_do; dq, dk, dv (written) with ld_out. Head dim 64; the row
 // strides multiples of 8 and the pointers 16-byte aligned. ld_state, the
 // row stride of the per-row planes below, must be T rounded up to 64.
-// stats is a float32 scratch of 3 planes of B*H * ld_state values that the
-// first launch writes for the second.
-//  * float32: row_m, row_l and o32 null; stats holds m, l and D of every row.
-//  * bfloat16: row_m, row_l, o32 the forward's row state (gw_attention
-//    under K1 with its outputs requested); stats holds 1/l and D of every
-//    row (the third plane is not used).
-// Two launches on `stream`; returns a cudaError_t.
+// row_m, row_l, o32: the forward's row state (gw_attention under K1 with
+// its outputs requested). stats is a float32 scratch of 3 planes of B*H *
+// ld_state values that the first launch writes for the second: 1/l and D
+// of every row (the third plane is not used). dtype must be GW_BF16: the
+// kernels take bfloat16 only, and any other value returns
+// cudaErrorInvalidValue. Two launches on `stream`; returns a cudaError_t.
 extern "C" int gw_attention_bwd(const void* q, const void* k, const void* v, const void* dout,
                                 const void* row_m, const void* row_l, const void* o32, void* dq, void* dk,
                                 void* dv, void* stats, int B, int T_len, int H, int ld_in, int ld_do,
                                 int ld_out, int ld_state, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T_len <= 0 || H <= 0 || ld_state != (T_len + 63) / 64 * 64) return (int)cudaErrorInvalidValue;
-  if (dtype == GW_F32) {
-    if (row_m != nullptr || row_l != nullptr || o32 != nullptr) return (int)cudaErrorInvalidValue;
-    return gw::launch_f32(q, k, v, dout, dq, dk, dv, stats, B, T_len, ld_state, H, ld_in, ld_do, ld_out, s);
-  }
-  if (dtype == GW_BF16)
-    return gw::launch_bf16(q, k, v, dout, row_m, row_l, o32, dq, dk, dv, stats, B, T_len, ld_state, H, ld_in,
-                           ld_do, ld_out, s);
-  return (int)cudaErrorInvalidValue;
+  if (B <= 0 || T_len <= 0 || H <= 0 || ld_state != (T_len + 63) / 64 * 64 || dtype != GW_BF16)
+    return (int)cudaErrorInvalidValue;
+  return gw::launch_bf16(q, k, v, dout, row_m, row_l, o32, dq, dk, dv, stats, B, T_len, ld_state, H, ld_in,
+                         ld_do, ld_out, s);
 }

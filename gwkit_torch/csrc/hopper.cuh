@@ -492,11 +492,11 @@ struct RingConsumer {
 // The rows r_begin, r_begin + r_step, ... < r_end of a K-wide bf16 panel held
 // as K / 64 atoms (atom a: columns 64a..64a+63, `atom_bytes` apart; element
 // (r, c) at sw128(r, c)), normalized in place by one warp a row, where the
-// products read them. gwkit's in-kernel LayerNorm (fused_block.py:66-71), as
-// common.cuh's ln_row: f32 mean and biased variance, normalize, round to
-// bf16, then scale and shift in bf16. Lane l takes the 16-byte chunks l and
-// l + 32 of each row (K <= 512); a warp takes ROWS rows at a time, so their
-// shuffle reductions overlap, and rounds pairs with one conversion.
+// products read them. gwkit's in-kernel LayerNorm (fused_block.py:66-71):
+// f32 mean and biased variance, normalize, round to bf16, then scale and
+// shift in bf16. Lane l takes the 16-byte chunks l and l + 32 of each row
+// (K <= 512); a warp takes ROWS rows at a time, so their shuffle
+// reductions overlap, and rounds pairs with one conversion.
 template <int ROWS>
 __device__ __forceinline__ void ln_rows_sw128(unsigned char* panel, uint32_t atom_bytes, int r_begin,
                                               int r_step, int r_end, int K, const __nv_bfloat16* g,

@@ -65,17 +65,6 @@
 // (quantize8). Rows past M load as zeros (or are not loaded), are quantized
 // with whatever scale and are never stored: the store clips at M. N is a
 // multiple of 128.
-//
-// float32 (int8_gemm_kernel, CPU-equivalent checks and the f32 tasks): the
-// first kernel, on int8 WMMA. A block owns 64 rows and walks every
-// 128-column tile of N. Its prologue takes one row per warp (with LN staged
-// and normalized in shared memory), takes the row's absolute maximum by a
-// warp reduction (reading the row from device memory twice without LN) and
-// writes the row, quantized, into an int8 (64, K) panel. Int8 W slices (64
-// x 128) stream through two shared buffers with cp.async; products are int8
-// WMMA 16x16x16 fragments with int32 accumulators (mma.sync); the epilogue
-// dequantizes from an int32 tile in shared memory. It computes each row's
-// maximum itself, so it ignores a handed-over one (the same value).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -86,178 +75,6 @@
 namespace gw {
 
 typedef signed char i8;
-
-// ---- float32: int8 WMMA fragments, rows staged in shared memory ---------------
-
-struct I8Gemm {
-  static constexpr int BM = 64, BN = 128, BK = 64;
-  static constexpr int LDB = BN + 16, LDC = BN + 4;  // int8 W slice, int32 result tile
-  static constexpr size_t B_TILE = align128((size_t)BK * LDB);
-  static constexpr size_t C_TILE = align128((size_t)BM * LDC * sizeof(int));
-  static constexpr size_t SX = align128(2 * BM * sizeof(float));  // per-row scales, then row maxima
-  static __host__ __device__ int lda(int K) { return K + 16; }
-  static __host__ __device__ size_t panel(int K) { return align128((size_t)BM * lda(K)); }
-  static __host__ __device__ size_t rows(int K) { return align128((size_t)kWarps * K * sizeof(float)); }
-  // the staging rows are needed only for the LayerNorm (K = d_model there)
-  static __host__ __device__ size_t smem(int K, bool ln) {
-    return panel(K) + (ln ? rows(K) : 0) + 2 * B_TILE + C_TILE + SX;
-  }
-};
-
-// int8 x int8 -> int32 accumulator of a (64, 128) tile: the 8 warps form a
-// 2 x 4 grid, each owning 32 rows x 32 columns (2 x 2 fragments).
-struct AccI8 {
-  static constexpr int NF = 2;
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, int> c[2][NF];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int f = 0; f < NF; ++f) nvcuda::wmma::fill_fragment(c[i][f], 0);
-  }
-
-  // c += A (64 x depth int8, row stride lda) * B (depth x 128 int8, row stride ldb)
-  __device__ __forceinline__ void mma(const i8* A, int lda, const i8* B, int ldb, int depth) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x >> 5;
-    const int row0 = (warp & 1) * 32, col0 = (warp >> 1) * 32;
-    for (int k0 = 0; k0 < depth; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, i8, wmma::row_major> a[2];
-      wmma::load_matrix_sync(a[0], A + row0 * lda + k0, lda);
-      wmma::load_matrix_sync(a[1], A + (row0 + 16) * lda + k0, lda);
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, i8, wmma::row_major> b;
-        wmma::load_matrix_sync(b, B + k0 * ldb + col0 + f * 16, ldb);
-        wmma::mma_sync(c[0][f], a[0], b, c[0][f]);
-        wmma::mma_sync(c[1][f], a[1], b, c[1][f]);
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(int* C, int ldc) const {
-    const int warp = threadIdx.x >> 5;
-    const int row0 = (warp & 1) * 32, col0 = (warp >> 1) * 32;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int f = 0; f < NF; ++f)
-        nvcuda::wmma::store_matrix_sync(C + (row0 + 16 * i) * ldc + col0 + f * 16, c[i][f], ldc,
-                                        nvcuda::wmma::mem_row_major);
-  }
-};
-
-// act: 0 none, 1 GELU (tanh), 2 GELU (erf); amax_out (M,) or null: each
-// row's max |y|
-__global__ void __launch_bounds__(kThreads)
-int8_gemm_kernel(const float* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
-                 const i8* __restrict__ w, const float* __restrict__ sw,
-                 const float* __restrict__ bias, const float* __restrict__ res, float* __restrict__ y,
-                 float* __restrict__ amax_out, int M, int N, int K, int act) {
-  typedef I8Gemm L;
-  extern __shared__ __align__(128) unsigned char smem[];
-  i8* As = reinterpret_cast<i8*>(smem);  // (BM, K) quantized panel
-  const bool ln = g != nullptr;
-  unsigned char* p = smem + L::panel(K);
-  float* rows = reinterpret_cast<float*>(p);  // with LN: one staging row of K per warp
-  p += ln ? L::rows(K) : 0;
-  i8* Bs[2] = {reinterpret_cast<i8*>(p), reinterpret_cast<i8*>(p + L::B_TILE)};
-  p += 2 * L::B_TILE;
-  int* Cs = reinterpret_cast<int*>(p);   // (BM, BN) int32 result of one column tile
-  float* sxs = reinterpret_cast<float*>(p + L::C_TILE);  // per-row scales
-  int* ymax = reinterpret_cast<int*>(sxs + L::BM);       // per-row max |y|, as the bits of a float >= 0
-  const int lda = L::lda(K);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m0 = blockIdx.x * L::BM;
-  const int nk = K / L::BK, ntiles = (N + L::BN - 1) / L::BN, total = nk * ntiles;
-  // stage t is W slice t % nk of column tile t / nk
-  auto issue = [&](int t) {
-    const int nt = t / nk, s = t - nt * nk;
-    load_tile_async(Bs[t & 1], L::LDB, w + (long long)s * L::BK * N + nt * L::BN, N, L::BK, L::BN,
-                    L::BK, N - nt * L::BN);
-  };
-  issue(0);  // the first W slice is in flight during the prologue
-  cp_async_commit();
-  if (threadIdx.x < L::BM) ymax[threadIdx.x] = 0;
-
-  // prologue: each warp quantizes its rows, read from device memory twice
-  // (maximum, then values), or with LN staged and normalized in shared
-  // memory first
-  for (int r = warp; r < L::BM; r += kWarps) {
-    const int m = m0 + r;
-    i8* qrow = As + r * lda;
-    if (m >= M) {  // past the last row: zeros, never stored
-      for (int c = lane; c < K; c += 32) qrow[c] = 0;
-      if (lane == 0) sxs[r] = 1.f;
-      continue;
-    }
-    const float* h = x + (long long)m * K;
-    if (ln) {
-      float* row = rows + warp * K;
-      for (int c = lane; c < K; c += 32) row[c] = h[c];
-      ln_row(row, K, g, b);
-      h = row;
-    }
-    float amax = 0.f;
-    for (int c = lane; c < K; c += 32) amax = fmaxf(amax, fabsf(h[c]));
-    const float sx = fmaxf(warp_max(amax), 1e-6f) / 127.f;
-    for (int c = lane; c < K; c += 32) {
-      const float v = fminf(fmaxf(rintf(h[c] / sx), -127.f), 127.f);
-      qrow[c] = static_cast<i8>(static_cast<int>(v));
-    }
-    if (lane == 0) sxs[r] = sx;
-  }
-  __syncthreads();
-
-  AccI8 acc;
-  for (int nt = 0; nt < ntiles; ++nt) {
-    acc.zero();
-    for (int s = 0; s < nk; ++s) {
-      const int t = nt * nk + s;
-      if (t + 1 < total) issue(t + 1);
-      cp_async_commit();
-      cp_async_wait1();
-      __syncthreads();
-      acc.mma(As + s * L::BK, lda, Bs[t & 1], L::LDB, L::BK);
-      __syncthreads();
-    }
-    acc.store(Cs, L::LDC);
-    __syncthreads();
-    const int n0 = nt * L::BN;
-    for (int e = threadIdx.x; e < L::BM * L::BN; e += kThreads) {
-      const int r = e / L::BN, c = e - r * L::BN;
-      const int m = m0 + r, n = n0 + c;
-      if (m < M && n < N) {
-        // (f32(acc) * sx) * sw + bias, each step rounded (no FMA), as gwkit's _qdot
-        const float d = __fmul_rn(__fmul_rn(__int2float_rn(Cs[r * L::LDC + c]), sxs[r]), sw[n]);
-        float o = __fadd_rn(d, bias[n]);
-        if (act != 0) o = gelu(o, act == 1);
-        if (res != nullptr) o = res[(long long)m * N + n] + o;
-        y[(long long)m * N + n] = o;
-        if (amax_out != nullptr) atomicMax(&ymax[r], __float_as_int(fabsf(o)));
-      }
-    }
-    __syncthreads();
-  }
-  if (amax_out != nullptr && threadIdx.x < L::BM && m0 + (int)threadIdx.x < M)
-    amax_out[m0 + threadIdx.x] = __int_as_float(ymax[threadIdx.x]);
-}
-
-static int launch_f32(const void* x, const void* g, const void* b, const void* w, const void* sw,
-                      const void* bias, const void* res, void* y, void* amax_out, int M, int N, int K, int act,
-                      cudaStream_t stream) {
-  const size_t smem = I8Gemm::smem(K, g != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(int8_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (M + I8Gemm::BM - 1) / I8Gemm::BM;
-  int8_gemm_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
-      static_cast<const i8*>(w), static_cast<const float*>(sw), static_cast<const float*>(bias),
-      static_cast<const float*>(res), static_cast<float*>(y), static_cast<float*>(amax_out), M, N, K, act);
-  return (int)cudaGetLastError();
-}
 
 // ---- bfloat16: s8 wgmma, TMA, the row panel quantized once on chip ------------
 
@@ -291,12 +108,12 @@ struct HopperI8 {
 static_assert((4 + 2 * HopperI8::MAX_STAGES) * sizeof(uint64_t) <= HopperI8::SX_OFF, "barriers");
 static_assert(HopperI8::SX_OFF + 128 * sizeof(float) <= HopperI8::BAR_BYTES, "row scales");
 
-// GELU of every bf16 input, rounded to bf16, by the same gelu() as the
-// float32 kernels and kernel C ([0] tanh, [1] erf): the epilogue's input is
-// a bf16 value and its output is rounded to bf16, so a lookup gives the
-// same bits (64 inlined copies of tanhf and erff made the epilogue's code
-// outgrow the instruction cache, and slowed even the launches without
-// GELU). Filled once a device; the entries in use stay in L1.
+// GELU of every bf16 input, rounded to bf16, by the same gelu() as kernels
+// B and C ([0] tanh, [1] erf): the epilogue's input is a bf16 value and its
+// output is rounded to bf16, so a lookup gives the same bits (64 inlined
+// copies of tanhf and erff made the epilogue's code outgrow the instruction
+// cache, and slowed even the launches without GELU). Filled once a device;
+// the entries in use stay in L1.
 __device__ uint16_t gelu_table[2][65536];
 
 __global__ void gelu_table_kernel() {
@@ -781,27 +598,23 @@ extern "C" int gw_int8_quantize(const void* x, const void* amax, void* q, int ro
   return (int)cudaGetLastError();
 }
 
-// x (M, K), g/b (K,) or null (no LayerNorm), w (K, N) int8 (f32) and wt its
-// transpose (N, K) contiguous (bf16), sw and bias (N,) float32, res (M, N)
-// or null, amax_in (M,) f32 or null: each row's max |x|, handed over by an
-// earlier launch's amax_out (bf16: stream mode; f32 ignores it and computes
-// the same value); amax_out (M,) f32 or null: each row's max |y|; y (M, N);
-// act 0 none, 1 GELU tanh, 2 GELU erf (with no residual).
-// float32: K a multiple of 64 and, by shared memory, at most 2752 (with LN
-// 1856); N a multiple of 16. bfloat16: K and N multiples of 128; K at most
-// 512 without amax_in, at most 2048 with it (then no LN and no amax_out).
-// x, w, wt, res and y 16-byte aligned. Returns a cudaError_t.
+// x (M, K), g/b (K,) or null (no LayerNorm), w (K, N) int8 (not read by
+// the kernel) and wt its transpose (N, K) contiguous, sw and bias (N,)
+// float32, res (M, N) or null, amax_in (M,) f32 or null: each row's max
+// |x|, handed over by an earlier launch's amax_out (stream mode); amax_out
+// (M,) f32 or null: each row's max |y|; y (M, N); act 0 none, 1 GELU tanh,
+// 2 GELU erf (with no residual). K and N multiples of 128; K at most 512
+// without amax_in, at most 2048 with it (then no LN and no amax_out). x,
+// wt, res and y 16-byte aligned. dtype must be GW_BF16: the kernel takes
+// bfloat16 only, and any other value returns cudaErrorInvalidValue.
+// Returns a cudaError_t.
 extern "C" int gw_int8_gemm(const void* x, const void* g, const void* b, const void* w, const void* wt,
                             const void* sw, const void* bias, const void* res, const void* amax_in, void* amax_out,
                             void* y, int M, int N, int K, int act, int dtype, void* stream) {
-  if (M < 0 || N <= 0 || K <= 0 || act < 0 || act > 2) return (int)cudaErrorInvalidValue;
+  if (M < 0 || N <= 0 || K <= 0 || act < 0 || act > 2 || dtype != GW_BF16) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == GW_F32) {
-    if (K % gw::I8Gemm::BK != 0 || N % 16 != 0) return (int)cudaErrorInvalidValue;
-    return gw::launch_f32(x, g, b, w, sw, bias, res, y, amax_out, M, N, K, act, s);
-  }
-  if (dtype != GW_BF16 || K % 128 != 0 || N % 128 != 0) return (int)cudaErrorInvalidValue;
+  if (K % 128 != 0 || N % 128 != 0) return (int)cudaErrorInvalidValue;
   if (amax_in != nullptr) {
     if (g != nullptr || amax_out != nullptr || K > gw::HopperI8::STREAM_MAX_K) return (int)cudaErrorInvalidValue;
     return gw::launch_bf16_epi<true>(x, g, b, wt, sw, bias, res, amax_in, amax_out, y, M, N, K, act, s);

@@ -44,12 +44,6 @@
 // hopper_wide_ln_gemm_kernel (below), which streams x beside W and folds
 // LayerNorm into the epilogue; the panel kernel above keeps K <= 512 as it
 // was.
-//
-// float32 (ln_gemm_kernel, CPU-equivalent checks and the f32 tasks): PR 1's
-// kernel. A block owns 64 rows x 128 columns, stages its 64 x K panel of x
-// in shared memory, normalizes it there, streams W through two shared
-// buffers with cp.async and accumulates with plain f32 FMA (no TF32), then
-// fuses bias, rounding and the residual add into the store.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -58,94 +52,6 @@
 #endif
 
 namespace gw {
-
-// ---- float32: FMA tiles in shared memory -------------------------------------
-
-
-template <typename T> struct LnGemm {
-  static constexpr int BM = 64, BN = 128, BK = 64;
-  static constexpr int LDB = BN + Pad<T>::v, LDC = BN + 4;
-  static constexpr size_t B_TILE = align128((size_t)BK * LDB * sizeof(T));
-  static __host__ __device__ int lda(int K) { return K + Pad<T>::v; }
-  static __host__ __device__ size_t region0(int K) {
-    const size_t a = align128((size_t)BM * lda(K) * sizeof(T));
-    const size_t c = align128((size_t)BM * LDC * sizeof(float));
-    return a > c ? a : c;
-  }
-  static __host__ __device__ size_t smem(int K) { return region0(K) + 2 * B_TILE; }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ln_gemm_kernel(const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ b,
-               const T* __restrict__ w, const float* __restrict__ bias,
-               const T* __restrict__ res, T* __restrict__ y, int M, int N, int K) {
-  typedef LnGemm<T> L;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);          // (BM, K) panel of x, then LN(x)
-  float* Cs = reinterpret_cast<float*>(smem);  // (BM, BN) f32 result; aliases As
-  T* Bs[2] = {reinterpret_cast<T*>(smem + L::region0(K)),
-              reinterpret_cast<T*>(smem + L::region0(K) + L::B_TILE)};
-  const int lda = L::lda(K);
-  const int m0 = blockIdx.y * L::BM, n0 = blockIdx.x * L::BN;
-  const int nk = K / L::BK;
-  auto issue_w = [&](int s) {  // W rows [s*BK, (s+1)*BK), columns [n0, n0+BN)
-    load_tile_async(Bs[s & 1], L::LDB, w + (long long)s * L::BK * N + n0, N, L::BK, L::BN,
-                    L::BK, N - n0);
-  };
-
-  // the x panel, then the first W slice, as two copy groups
-  load_tile_async(As, lda, x + (long long)m0 * K, K, L::BM, K, M - m0, K);
-  cp_async_commit();
-  issue_w(0);
-  cp_async_commit();
-  cp_async_wait1();
-  __syncthreads();
-  if (g != nullptr) ln_rows(As, lda, L::BM, K, g, b);
-
-  // W streams through two buffers: slice s+1 is in flight while s multiplies
-  Acc<T, L::BM, L::BN> acc;
-  acc.zero();
-  for (int s = 0; s < nk; ++s) {
-    if (s + 1 < nk) issue_w(s + 1);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    acc.template mma<false>(As + s * L::BK, lda, Bs[s & 1], L::LDB, L::BK);
-    __syncthreads();
-  }
-  acc.store(Cs, L::LDC);
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < L::BM * L::BN; e += kThreads) {
-    const int r = e / L::BN, c = e - r * L::BN;
-    const int m = m0 + r, n = n0 + c;
-    if (m < M && n < N) {
-      float o = rnd<T>(Cs[r * L::LDC + c] + bias[n]);
-      if (res != nullptr) o = to_f(res[(long long)m * N + n]) + o;
-      y[(long long)m * N + n] = from_f<T>(o);
-    }
-  }
-}
-
-static int launch_f32(const void* x, const void* g, const void* b, const void* w, const void* bias,
-                      const void* res, void* y, int M, int N, int K, cudaStream_t stream) {
-  typedef LnGemm<float> L;
-  static bool attr_set = false;  // once a process: the shared-memory limit of the largest K
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(ln_gemm_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)L::smem(512));
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
-  if (K > 512) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + L::BN - 1) / L::BN, (M + L::BM - 1) / L::BM);
-  ln_gemm_kernel<float><<<grid, kThreads, L::smem(K), stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
-      static_cast<const float*>(w), static_cast<const float*>(bias), static_cast<const float*>(res),
-      static_cast<float*>(y), M, N, K);
-  return (int)cudaGetLastError();
-}
 
 // ---- bfloat16: wgmma, TMA, one normalized panel, W multicast in a cluster ------
 
@@ -963,16 +869,16 @@ static int launch_wide(const void* x, const void* w, const void* colsum, const v
 
 // x (M, K), g/b (K,) or null (no LayerNorm), w (K, N), bias (N,) float32,
 // res (M, N) or null, y (M, N); K a multiple of 64 up to 512, N of 8;
-// x, w, res and y 16-byte aligned. Returns a cudaError_t.
+// x, w, res and y 16-byte aligned. dtype must be GW_BF16: the kernel takes
+// bfloat16 only, and any other value returns cudaErrorInvalidValue.
+// Returns a cudaError_t.
 extern "C" int gw_ln_gemm(const void* x, const void* g, const void* b, const void* w,
                           const void* bias, const void* res, void* y, int M, int N, int K,
                           int dtype, void* stream) {
-  if (K % 64 != 0 || K <= 0 || K > 512 || N % 8 != 0 || N <= 0 || M < 0) return (int)cudaErrorInvalidValue;
+  if (K % 64 != 0 || K <= 0 || K > 512 || N % 8 != 0 || N <= 0 || M < 0 || dtype != GW_BF16)
+    return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == GW_F32) return gw::launch_f32(x, g, b, w, bias, res, y, M, N, K, s);
-  if (dtype == GW_BF16) return gw::launch_bf16(x, g, b, w, bias, res, y, M, N, K, s);
-  return (int)cudaErrorInvalidValue;
+  return gw::launch_bf16(x, g, b, w, bias, res, y, M, N, K, static_cast<cudaStream_t>(stream));
 }
 
 // The streamed bfloat16 path (hopper_wide_ln_gemm_kernel): x (M, K), w (K,

@@ -31,7 +31,8 @@ SOURCES = ("attention", "attention_bwd", "ln_gemm", "fused_mlp", "int8_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the dtype argument of every C entry point (GW_BF16 in csrc/common.cuh): the kernels take bfloat16 only
+BF16_CODE = 1
 
 # Launches per kernel: each wrapper adds one where it launches its kernel.
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -147,6 +148,14 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t is not None and not t.is_cuda:
             raise ValueError(f"{name}: every operand must be on the CUDA device")
+
+
+def require_bf16(name: str, *tensors: torch.Tensor) -> None:
+    """On the card the kernel chain takes bfloat16 only; ``None`` operands pass."""
+    for t in tensors:
+        if t is not None and t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: dtype {t.dtype}: on the card the kernel chain takes bfloat16; "
+                            "float32 runs the plain layer (fused_block=False)")
 
 
 def require_aligned(name: str, *tensors: torch.Tensor) -> None:

@@ -7,17 +7,17 @@ kernel A (``csrc/attention.cu``) under the contract of gwkit's K1
 (``_attn_kernel``): scores in f32, keys at or beyond T masked, the exact
 row max, p = exp(s - m) / sum in f32, p rounded to v's dtype, then p . V
 accumulated in f32. Its backward runs kernel D (``csrc/attention_bwd.cu``),
-the port of gwkit's K5 (``_attn_bwd_kernel``). In bf16 the forward saves
-K1's row state (:class:`RowState`: each row's exact max and f32 sum, and the
-f32 output before its rounding) from kernel A's registers, and kernel D
-reads it instead of recomputing it. On CPU tensors both take their plain
-PyTorch versions, ``reference_attention`` and ``reference_attention_bwd``,
-which save and read the same state.
+the port of gwkit's K5 (``_attn_bwd_kernel``). Both kernels take bfloat16.
+The forward saves K1's row state (:class:`RowState`: each row's exact max
+and f32 sum, and the f32 output before its rounding) from kernel A's
+registers, and kernel D reads it instead of recomputing it. On CPU tensors
+both take their plain PyTorch versions, ``reference_attention`` and
+``reference_attention_bwd``, which save and read the same state.
 
 ``attention_from_qkv`` is kernel A as the attention stage of the fused
 encoder block (``gwkit_torch.ops.fused_block``), under K3's contract: p =
 exp(round(s - m)) in the compute type and the output divided by the f32
-denominator. In f32 the two contracts agree to rounding.
+denominator.
 """
 from __future__ import annotations
 
@@ -98,11 +98,6 @@ def reference_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, d
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _check(name: str, t: torch.Tensor) -> None:
-    if t.dtype not in _cuda.DTYPE_CODES:
-        raise TypeError(f"{name}: dtype {t.dtype} (kernel takes float32 or bfloat16)")
-
-
 def _row_stride(t: torch.Tensor) -> Optional[int]:
     """ld if the (B, T, H, 64) view ``t`` reads row t of sequence b, head h
     at (b*T + t)*ld + h*64 (a contiguous tensor, or a column block of the
@@ -115,14 +110,14 @@ def _row_stride(t: torch.Tensor) -> Optional[int]:
 
 
 def _operands(name: str, *ts: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], int]:
-    """Check q, k, v (same shape and dtype, head dim 64) and return views
+    """Check q, k, v (bf16, same shape, head dim 64) and return views
     that share one row stride (contiguous copies where they do not)."""
     q = ts[0]
     _cuda.require_cuda(name, *ts)
+    _cuda.require_bf16(name, *ts)
     for t in ts:
-        _check(name, t)
-        if t.shape != q.shape or t.dtype != q.dtype:
-            raise ValueError(f"{name}: q, k, v must share shape and dtype")
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: q, k, v must share shape")
     if q.shape[-1] != HEAD_DIM:
         raise ValueError(f"{name}: head dim {q.shape[-1]} (kernel takes {HEAD_DIM})")
     lds = {_row_stride(t) for t in ts}
@@ -136,11 +131,11 @@ def _operands(name: str, *ts: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], i
 def _launch(lib, stream: int, q, k, v, out, B: int, T: int, H: int, ld_in: int, ld_out: int,
             k1: bool, state: Optional[RowState] = None) -> None:
     """Launch kernel A on row-strided q/k/v views (rows of ``ld_in`` elements);
-    ``k1`` picks K1's softmax contract, else K3's. A ``state`` (bf16, K1
-    only) is written beside the output."""
+    ``k1`` picks K1's softmax contract, else K3's. A ``state`` (K1 only) is
+    written beside the output."""
     saved = (None, None, None) if state is None else (state.m.data_ptr(), state.l.data_ptr(), state.o.data_ptr())
     err = lib.gw_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *saved,
-                           B, T, H, ld_in, ld_out, state_rows(T), _cuda.DTYPE_CODES[q.dtype], int(k1), stream)
+                           B, T, H, ld_in, ld_out, state_rows(T), _cuda.BF16_CODE, int(k1), stream)
     _cuda.check(err, "attention")
     _cuda.LAUNCHES["attention"] += 1
 
@@ -148,16 +143,15 @@ def _launch(lib, stream: int, q, k, v, out, B: int, T: int, H: int, ld_in: int, 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, save_state: bool = False):
     """Kernel A under K1's contract: (B, T, H, 64) pre-scaled q, k, v -> (B, T, H, 64).
 
-    With ``save_state``, (output, :class:`RowState` or None): the state
-    comes from kernel A in bf16 and from the plain version on the CPU; in
-    f32 on the card it is None (kernel D's f32 path recomputes it)."""
+    With ``save_state``, (output, :class:`RowState`): the state comes from
+    kernel A on the card and from the plain version on the CPU."""
     if q.device.type == "cpu":
         return reference_attention(q, k, v, with_state=save_state)
     (q, k, v), ld = _operands("flash_attention", q, k, v)
     B, T, H, hd = q.shape
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
     state = None
-    if save_state and q.dtype == torch.bfloat16:
+    if save_state:
         rows = torch.empty((2, B * H, state_rows(T)), dtype=torch.float32, device=q.device)
         state = RowState(rows[0], rows[1], torch.empty((B, T, H, hd), dtype=torch.float32, device=q.device))
     _launch(_cuda.library("attention"), _cuda.stream_of(q), q, k, v, out, B, T, H, ld, H * hd, k1=True,
@@ -179,10 +173,9 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
     """Kernel D: (dq, dk, dv) of K1 at (q, k, v) for the output gradient
     ``do``, all (B, T, H, 64), returned in q's dtype.
 
-    bf16 reads the forward's ``state`` (:func:`attention_fwd` with
+    Kernel D reads the forward's ``state`` (:func:`attention_fwd` with
     ``save_state``); without one it first runs kernel A under K1 to make it
-    (one more counted ``attention`` launch). f32 recomputes the state in
-    kernel D and takes none."""
+    (one more counted ``attention`` launch)."""
     if q.device.type == "cpu":
         return reference_attention_bwd(q, k, v, do, state)
     (q, k, v), ld = _operands("attention_bwd", q, k, v)
@@ -193,21 +186,16 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.T
     _cuda.require_aligned("attention_bwd", do)
     B, T, H, hd = q.shape
     tp = state_rows(T)
-    if q.dtype == torch.bfloat16:
-        if state is None:
-            _, state = attention_fwd(q, k, v, save_state=True)
-        _check_state(state, B, T, H, hd)
-        saved = tuple(t.data_ptr() for t in state)
-    else:
-        if state is not None:
-            raise ValueError("attention_bwd: the f32 kernel recomputes the row state and takes none")
-        saved = (None, None, None)
+    if state is None:
+        _, state = attention_fwd(q, k, v, save_state=True)
+    _check_state(state, B, T, H, hd)
     stats = torch.empty((3, B * H, tp), dtype=torch.float32, device=q.device)  # the planes launch 1 writes for 2
     dq, dk, dv = (torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device) for _ in range(3))
     lib = _cuda.library("attention_bwd")
-    err = lib.gw_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *saved, dq.data_ptr(),
-                               dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, T, H, ld, H * hd,
-                               H * hd, tp, _cuda.DTYPE_CODES[q.dtype], _cuda.stream_of(q))
+    err = lib.gw_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                               *(t.data_ptr() for t in state), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                               stats.data_ptr(), B, T, H, ld, H * hd, H * hd, tp, _cuda.BF16_CODE,
+                               _cuda.stream_of(q))
     _cuda.check(err, "attention_bwd")
     _cuda.LAUNCHES["attention_bwd"] += 1  # one per call; the call runs two grids (dq, then dk/dv)
     return dq, dk, dv
@@ -223,13 +211,13 @@ class FlashAttention(torch.autograd.Function):
         if not any(ctx.needs_input_grad):
             return attention_fwd(q, k, v)
         out, state = attention_fwd(q, k, v, save_state=True)
-        ctx.save_for_backward(q, k, v, *(state or ()))
+        ctx.save_for_backward(q, k, v, *state)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, *state = ctx.saved_tensors
-        return attention_bwd(q, k, v, do, RowState(*state) if state else None)
+        return attention_bwd(q, k, v, do, RowState(*state))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -251,7 +239,7 @@ def attention_from_qkv(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
         q, k, v = (t.reshape(B, T, n_heads, D // n_heads) for t in qkv.split(D, dim=-1))
         return reference_attention(q, k, v).reshape(B, T, D)
     _cuda.require_cuda("attention_from_qkv", qkv)
-    _check("attention_from_qkv", qkv)
+    _cuda.require_bf16("attention_from_qkv", qkv)
     if not qkv.is_contiguous():
         raise ValueError("attention_from_qkv: tensor must be contiguous")
     if D != n_heads * HEAD_DIM:

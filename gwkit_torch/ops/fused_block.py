@@ -42,7 +42,10 @@ fused_block.py:379-391, :431-470), and the port copies that decision
              the f32 effective weights, q scaled after its projection in the
              compute dtype, attention under K1's contract
 
-On CPU tensors each stage takes its kernel's plain version, so the chain's
+On CUDA tensors every kernel takes bfloat16 only: a float32 chain is
+refused before its first launch (``_cuda.require_bf16``), and float32 on
+the card runs the unfused layer (``WhisperConfig(fused_block=False)``). On
+CPU tensors each stage takes its kernel's plain version, so the chain's
 wiring is tested on the CPU against gwkit. ``_reference_block`` is gwkit's
 unfused math for the same layer.
 
@@ -180,7 +183,7 @@ def fold_layer(p: dict, adapters: Optional[dict], n_heads: int, dtype: torch.dty
         w1=p["fc1"]["w"].contiguous(), b1=p["fc1"]["b"].float(),
         w2=p["fc2"]["w"].contiguous(), b2=p["fc2"]["b"].float(),
     )
-    if D > PANEL_MAX_K and dtype == torch.bfloat16 and layer.wqkv.is_cuda:
+    if D > PANEL_MAX_K and layer.wqkv.is_cuda:
         layer.ln1_fold = ln_fold(layer.wqkv, layer.bqkv, layer.ln1_g, layer.ln1_b)
         layer.ln2_fold = ln_fold(layer.w1, layer.b1, layer.ln2_g, layer.ln2_b)
     if quant:
@@ -224,7 +227,7 @@ def _launch_ln_gemm(lib, stream: int, x2, w, bias, ln, residual, y) -> None:
     g, b = ln if ln is not None else (None, None)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.gw_ln_gemm(x2.data_ptr(), ptr(g), ptr(b), w.data_ptr(), bias.data_ptr(),
-                         ptr(residual), y.data_ptr(), M, N, K, _cuda.DTYPE_CODES[x2.dtype], stream)
+                         ptr(residual), y.data_ptr(), M, N, K, _cuda.BF16_CODE, stream)
     _cuda.check(err, "ln_gemm")
     _cuda.LAUNCHES["ln_gemm"] += 1
 
@@ -246,32 +249,27 @@ def ln_gemm(x2: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             fold: Optional[LnFold] = None) -> torch.Tensor:
     """Kernel B on (M, K) rows: [LN(x)] @ W (K, N) + bias (N,) [GELU]
     [+ residual (M, N)]; ``act`` "tanh" or "erf" is kernel C's GELU.
-    On CUDA, W, the LN scale/shift and the residual are in x's dtype, bias f32.
-    bfloat16 runs the wgmma/TMA panel kernel (``hopper_ln_gemm_kernel``) at
-    K <= 512 without ``act``, else the streamed kernel
-    (``hopper_wide_ln_gemm_kernel``, K up to 5120), which takes LayerNorm as
-    ``fold`` (:func:`ln_fold` of ``w``, ``bias`` and ``ln``; made here when
-    not given). float32 runs the FMA kernel (K <= 512, no ``act``)."""
+    On CUDA, x, W, the LN scale/shift and the residual are in bfloat16, bias
+    f32: the wgmma/TMA panel kernel (``hopper_ln_gemm_kernel``) at K <= 512
+    without ``act``, else the streamed kernel (``hopper_wide_ln_gemm_kernel``,
+    K up to 5120), which takes LayerNorm as ``fold`` (:func:`ln_fold` of
+    ``w``, ``bias`` and ``ln``; made here when not given)."""
     if act not in ACTS:
         raise ValueError(f"ln_gemm: act {act!r} (None, 'tanh' or 'erf')")
     if x2.device.type == "cpu":
         return _ln_gemm_reference(x2, w, bias, ln, residual, act)
     ops = [x2, w, bias, residual] + list(ln or ())
     _cuda.require_cuda("ln_gemm", *ops)
+    _cuda.require_bf16("ln_gemm", x2)
     dt = x2.dtype
-    if dt not in _cuda.DTYPE_CODES:
-        raise TypeError(f"ln_gemm: dtype {dt} (kernel takes float32 or bfloat16)")
     M, K = x2.shape
     N = w.shape[1]
     streamed = K > PANEL_MAX_K or act is not None
-    max_k = STREAM_MAX_K if dt == torch.bfloat16 else PANEL_MAX_K
-    if w.shape[0] != K or K % 64 or not 0 < K <= max_k or N % 8 or tuple(bias.shape) != (N,) \
+    if w.shape[0] != K or K % 64 or not 0 < K <= STREAM_MAX_K or N % 8 or tuple(bias.shape) != (N,) \
             or bias.dtype != torch.float32 \
             or (residual is not None and tuple(residual.shape) != (M, N)):
         raise ValueError(f"ln_gemm: x {tuple(x2.shape)}, w {tuple(w.shape)}, bias {tuple(bias.shape)} "
-                         f"{bias.dtype}; K must be a multiple of 64 up to {max_k} in {dt}, N of 8")
-    if streamed and dt != torch.bfloat16:
-        raise ValueError("ln_gemm: the GELU epilogue runs in bfloat16 only")
+                         f"{bias.dtype}; K must be a multiple of 64 up to {STREAM_MAX_K}, N of 8")
     for t in ops:
         if t is not bias and t is not None and (t.dtype != dt or not t.is_contiguous()):
             raise ValueError("ln_gemm: operands must be contiguous and share x's dtype")

@@ -2,10 +2,10 @@
 
   out = x + gelu(LN(x) @ W1 + b1) @ W2 + b2
 
-On CUDA tensors ``fused_mlp_block`` runs kernel C (``csrc/fused_mlp.cu``):
-LN statistics in f32, products accumulated in f32, GELU in the compute type,
-and the (rows, F) activation kept in shared memory; bfloat16 on wgmma and
-TMA (``hopper_fused_mlp_kernel``, F a multiple of 128), float32 on FMA. On CPU tensors it runs
+On CUDA tensors ``fused_mlp_block`` runs kernel C (``csrc/fused_mlp.cu``)
+in bfloat16 on wgmma and TMA (``hopper_fused_mlp_kernel``, F a multiple of
+128): LN statistics in f32, products accumulated in f32, GELU in bf16, and
+the (rows, F) activation kept in shared memory. On CPU tensors it runs
 ``_unfused``, the plain PyTorch version. Where a gradient is wanted on the
 card, the backward recomputes the plain math and differentiates it (gwkit's
 ``_fused_bwd``). The TPU kernel it replaces is
@@ -72,28 +72,26 @@ def _launch(lib, stream: int, x2, g, b, w1, b1, w2, b2, out, approx: bool) -> No
     M, D = x2.shape
     err = lib.gw_fused_mlp(x2.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                            w2.data_ptr(), b2.data_ptr(), out.data_ptr(), M, D, w1.shape[1],
-                           int(approx), _cuda.DTYPE_CODES[x2.dtype], stream)
+                           int(approx), _cuda.BF16_CODE, stream)
     _cuda.check(err, "fused_mlp")
     _cuda.LAUNCHES["fused_mlp"] += 1
 
 
 def fused_mlp_block(x, g, b, w1, b1, w2, b2, approx: bool = False) -> torch.Tensor:
     """x (B, T, D) -> x + MLP(LN(x)); weights right-multiplied ((D, F), (F, D)).
-    On CUDA: g, b, w1, w2 are used in x's dtype and b1, b2 in float32."""
+    On CUDA: x in bfloat16; g, b, w1, w2 are used in bfloat16 and b1, b2 in float32."""
     if x.device.type == "cpu":
         return _unfused(x, g, b, w1, b1, w2, b2, approx)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, g, b, w1, b1, w2, b2)):
         return _FusedMLP.apply(x, g, b, w1, b1, w2, b2, approx)
     _cuda.require_cuda("fused_mlp_block", x, g, b, w1, b1, w2, b2)
+    _cuda.require_bf16("fused_mlp_block", x)
     dt = x.dtype
-    if dt not in _cuda.DTYPE_CODES:
-        raise TypeError(f"fused_mlp_block: dtype {dt} (kernel takes float32 or bfloat16)")
     D = x.shape[-1]
     Fd = w1.shape[1]
-    f_step = 128 if dt == torch.bfloat16 else 64
-    if D not in KERNEL_WIDTHS or Fd % f_step or tuple(w1.shape) != (D, Fd) or tuple(w2.shape) != (Fd, D):
+    if D not in KERNEL_WIDTHS or Fd % 128 or tuple(w1.shape) != (D, Fd) or tuple(w2.shape) != (Fd, D):
         raise ValueError(f"fused_mlp_block: D={D} (kernel takes {KERNEL_WIDTHS}), "
-                         f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}, F a multiple of {f_step}")
+                         f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}, F a multiple of 128")
     x2 = x.reshape(-1, D).contiguous()
     ops = [t.to(dt).contiguous() for t in (g, b, w1)] + [b1.float().contiguous()] \
         + [w2.to(dt).contiguous(), b2.float().contiguous()]

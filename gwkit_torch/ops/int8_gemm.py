@@ -10,10 +10,10 @@ int32 and dequantized as (f32(acc) * sx) * sw + bias in f32, then rounded
 to the compute dtype. The epilogue adds nothing, GELU (tanh or erf, in the
 compute dtype after that rounding) or a residual (in the compute dtype).
 
-On CUDA tensors :func:`int8_gemm` runs kernel E (``csrc/int8_gemm.cu``):
-in bfloat16 the s8 wgmma/TMA kernel (``hopper_int8_gemm_kernel``), which
-reads the weight K-major (``QuantProj.wt``), in float32 the int8 WMMA
-kernel; on CPU tensors ``_int8_gemm_reference``, the plain version built
+On CUDA tensors :func:`int8_gemm` runs kernel E (``csrc/int8_gemm.cu``)
+in bfloat16, the s8 wgmma/TMA kernel (``hopper_int8_gemm_kernel``), which
+reads the weight K-major (``QuantProj.wt``); on CPU tensors
+``_int8_gemm_reference``, the plain version built
 from the three helpers below. The plain product sums the int8 products in
 float64, which is exact at these sizes (|acc| <= 127^2 * K < 2^53), as
 gwkit's int32 sum is.
@@ -110,13 +110,13 @@ def _launch(lib, stream: int, x2, proj: QuantProj, ln, act: int, residual, row_a
     ptr = lambda t: None if t is None else t.data_ptr()
     err = lib.gw_int8_gemm(x2.data_ptr(), ptr(g), ptr(b), proj.w.data_ptr(), proj.wt.data_ptr(),
                            proj.scale.data_ptr(), proj.bias.data_ptr(), ptr(residual), ptr(row_amax),
-                           ptr(amax_out), y.data_ptr(), M, N, K, act, _cuda.DTYPE_CODES[x2.dtype], stream)
+                           ptr(amax_out), y.data_ptr(), M, N, K, act, _cuda.BF16_CODE, stream)
     _cuda.check(err, "int8_gemm")
     _cuda.LAUNCHES["int8_gemm"] += 1
 
 
 def _check_shapes(x2, proj: QuantProj, ln, residual, row_amax) -> None:
-    """What the kernels take (csrc/int8_gemm.cu, gw_int8_gemm); raises on anything else."""
+    """What the kernel takes (csrc/int8_gemm.cu, gw_int8_gemm); raises on anything else."""
     M, K = x2.shape
     N = proj.w.shape[1]
     if proj.w.dtype != torch.int8 or proj.w.shape[0] != K or tuple(proj.wt.shape) != (N, K) \
@@ -128,12 +128,9 @@ def _check_shapes(x2, proj: QuantProj, ln, residual, row_amax) -> None:
         raise ValueError(f"int8_gemm: x {tuple(x2.shape)}, w {tuple(proj.w.shape)} {proj.w.dtype}, wt "
                          f"{tuple(proj.wt.shape)}, scale/bias {tuple(proj.scale.shape)}/{tuple(proj.bias.shape)} "
                          "(f32), row_amax (M,) f32")
-    if x2.dtype == torch.float32:
-        if K % 64 or N % 16:
-            raise ValueError(f"int8_gemm: K {K}, N {N}; in float32 K must be a multiple of 64, N of 16")
-    elif K % 128 or N % 128 or K > (512 if row_amax is None else 2048):
-        raise ValueError(f"int8_gemm: K {K}, N {N}; in bfloat16 K and N must be multiples of 128, K at most "
-                         "512, or 2048 with each row's maximum handed over (row_amax: fc2 after fc1)")
+    if K % 128 or N % 128 or K > (512 if row_amax is None else 2048):
+        raise ValueError(f"int8_gemm: K {K}, N {N}; K and N must be multiples of 128, K at most 512, or 2048 "
+                         "with each row's maximum handed over (row_amax: fc2 after fc1)")
 
 
 def int8_gemm(x2: torch.Tensor, proj: QuantProj, ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -141,8 +138,8 @@ def int8_gemm(x2: torch.Tensor, proj: QuantProj, ln: Optional[Tuple[torch.Tensor
               row_amax: Optional[torch.Tensor] = None, return_row_amax: bool = False):
     """Kernel E on (M, K) rows: [LN(x)] quantized per row times ``proj``'s
     int8 (K, N) weight, dequantized, + bias, then GELU (``act`` "tanh" or
-    "erf") or + ``residual`` (M, N). On CUDA the LN scale/shift and the
-    residual are in x's dtype (float32 or bfloat16), scales and bias f32.
+    "erf") or + ``residual`` (M, N). On CUDA x, the LN scale/shift and the
+    residual are in bfloat16, scales and bias f32.
 
     ``row_amax`` (M,) f32: each row's max |x|, handed over by the launch that
     wrote x (no LN then); ``return_row_amax``: also return each output row's
@@ -159,9 +156,8 @@ def int8_gemm(x2: torch.Tensor, proj: QuantProj, ln: Optional[Tuple[torch.Tensor
             raise ValueError("int8_gemm: operands on more than one device")
         return _int8_gemm_reference(x2, proj, ln, act, residual, row_amax, return_row_amax)
     _cuda.require_cuda("int8_gemm", *ops)
+    _cuda.require_bf16("int8_gemm", x2)
     dt = x2.dtype
-    if dt not in _cuda.DTYPE_CODES:
-        raise TypeError(f"int8_gemm: dtype {dt} (kernel takes float32 or bfloat16)")
     _check_shapes(x2, proj, ln, residual, row_amax)
     for t in [x2, residual, *(ln or ())]:
         if t is not None and (t.dtype != dt or not t.is_contiguous()):

@@ -298,6 +298,19 @@ def test_kernel_wrappers_refuse_mixed_devices():
         _cuda.require_cuda("ln_gemm", x)
 
 
+def test_require_bf16_names_the_kernel_and_the_plain_route():
+    """On the card the kernel chain takes bfloat16 only: ``require_bf16``
+    passes bfloat16 tensors and ``None``, and refuses any other dtype with a
+    ``TypeError`` that names the kernel and the plain route."""
+    from gwkit_torch.ops import _cuda
+
+    bf = torch.zeros(4, dtype=torch.bfloat16)
+    _cuda.require_bf16("ln_gemm", bf, None, bf)
+    for dt in (torch.float32, torch.float16):
+        with pytest.raises(TypeError, match=r"^int8_gemm: dtype .*bfloat16.*fused_block=False"):
+            _cuda.require_bf16("int8_gemm", bf, torch.zeros(4, dtype=dt))
+
+
 def test_int8_gemm_refuses_mixed_devices():
     """Kernel E's wrapper: CPU operands take the plain version; an operand
     on another device is refused, on either path."""

@@ -18,8 +18,8 @@ at each of a 1280-wide layer's four launches against its plain version,
 with ragged M, and at its edges (ragged N, one slice, a GELU with a
 residual, unequal warpgroup tiles, a row mean of 30 sigma); the panel path at K = 384 and 512 unchanged; one large-v3
 layer on the chain against ``_reference_block``; the planted faults failing
-the new cell's check. The file imports no JAX, so the card tests run where
-there is none::
+the new cell's check; kernels B, C, A and E refusing float32. The file
+imports no JAX, so the card tests run where there is none::
 
     python -m pytest --noconftest tests/test_torch_large_v3.py -m card
 
@@ -521,6 +521,28 @@ def test_large_v3_layer_on_the_chain(card):
     assert streamed == 4  # all four of B's launches on its streamed kernel
     err, perr = got.float() - want, plain.float() - want
     assert _rms(err) <= 1.25 * _rms(perr) and float(err.abs().max()) <= 1.5 * float(perr.abs().max())
+
+
+@pytest.mark.card
+def test_kernels_refuse_float32_before_any_launch(card):
+    """On the card the kernel chain takes bfloat16 only: kernels B, C, A
+    and E refuse float32 operands with a TypeError before any launch
+    (float32 runs the plain layer, ``fused_block=False``)."""
+    from gwkit_torch.ops import attention, fused_mlp, int8_gemm
+
+    f = lambda *s: torch.randn(*s, device=card)
+    x, g, b = f(64, 384), f(384), f(384)
+    calls = {"ln_gemm": lambda: fb.ln_gemm(x, f(384, 1152), f(1152), ln=(g, b)),
+             "fused_mlp_block": lambda: fused_mlp.fused_mlp_block(x.view(1, 64, 384), g, b, f(384, 1536), f(1536),
+                                                                  f(1536, 384), f(384)),
+             "attention_from_qkv": lambda: attention.attention_from_qkv(f(1, 64, 3 * 384), 6),
+             "flash_attention": lambda: attention.flash_attention(f(1, 64, 6, 64), f(1, 64, 6, 64), f(1, 64, 6, 64)),
+             "int8_gemm": lambda: int8_gemm.int8_gemm(x, int8_gemm.QuantProj.of(f(384, 384), f(384)), ln=(g, b))}
+    before = dict(_cuda.LAUNCHES)
+    for name, call in calls.items():
+        with pytest.raises(TypeError, match=f"^{name}: dtype torch.float32.*bfloat16"):
+            call()
+    assert _cuda.LAUNCHES == before
 
 
 @pytest.mark.card
