@@ -648,6 +648,7 @@ def large_v3_phase(checks, smi):
     from gwkit_torch.cli.common import build_encoder_config
     from gwkit_torch.models.adapters import AdapterConfig
     from gwkit_torch.train.tasks import build_signal_vs_noise
+    from gwkit_torch.utils.tracing import COUNTERS
 
     dt, dev = torch.bfloat16, torch.device("cuda")
     D, F, H, Bs, T = LV3_D, LV3_F, LV3_H, LV3_BS, LV3_T
@@ -734,7 +735,9 @@ def large_v3_phase(checks, smi):
     load_s = time.time() - t0
     strain = torch.from_numpy(rng.normal(size=(Bs // 2, 2, 2048)).astype(np.float32)).to(dev)
     task.forward(strain)  # folds the encoder once
+    two_pass = COUNTERS["attention_two_pass_launches"]
     logits, launches, plain_calls, mlp = _counted(lambda: task.forward(strain))
+    two_pass = COUNTERS["attention_two_pass_launches"] - two_pass
     nl = LV3_LAYERS
     ok = (launches == {"attention": nl, "attention_bwd": 0, "ln_gemm": 4 * nl, "fused_mlp": 0, "int8_gemm": 0}
           and not plain_calls
@@ -747,6 +750,9 @@ def large_v3_phase(checks, smi):
          load_s=load_s, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, ok=ok)
     if not ok:
         checks.failed.append("large-v3 forward: not 4 B + 1 A a layer with the MLP split, or no plain call")
+    emit("large_v3_two_pass", attention_two_pass_launches=two_pass, expected=nl, ok=two_pass == nl)
+    if two_pass != nl:
+        checks.failed.append(f"large-v3 forward: {two_pass} two-pass launches of kernel A, not {nl}")
     del task
     torch.cuda.empty_cache()
     return record, launches
@@ -785,11 +791,12 @@ def ragged_checks(checks, rng):
                                        layer.b2.to(dt), approx), tol)
 
 
-# kernel A's checks: (T, sequences, score scales). T = 200 and 256 take the
-# one-pass path (200 with a ragged last key tile), 300 and 1500 two passes
-# (both ragged; 300 pads an odd tile count)
-ATTN_CASES = ((200, 16, (1.0, 60.0)), (256, 16, (1.0, 60.0)), (300, 16, (1.0, 60.0)),
-              (1500, 64, (1e-3, 1.0, 60.0, 1e3)))
+# kernel A's checks: (T, sequences, heads, score scales). T = 200 and 256
+# take the one-pass path (200 with a ragged last key tile), 300, 1430 and
+# 1500 two passes (all ragged; 300 and 1430 pad an odd tile count with an
+# all-masked tile); 16 x 20 x T = 1500 is whisper-large-v3's mel path
+ATTN_CASES = ((200, 16, 6, (1.0, 60.0)), (256, 16, 6, (1.0, 60.0)), (300, 16, 6, (1.0, 60.0)),
+              (1500, 64, 6, (1e-3, 1.0, 60.0, 1e3)), (1430, 16, 6, (1.0, 60.0)), (1500, 16, 20, (1.0, 60.0)))
 
 
 def _attention_inputs(rng, B, T, H, scale, dt):
@@ -813,10 +820,11 @@ def attention_checks(checks, rng):
     projection, K3's through attention_from_qkv in place and through the
     launch on contiguous tensors; K1 at the training forward's shapes.
     Times at the strict geometry under both contracts and at the training
-    forward (K1), SDPA's beside them; bf16 throughout."""
-    dt, H, tag = torch.bfloat16, 6, "bf16"
+    forward (K1) and at whisper-large-v3's 16 x 20 x T = 1500 (K3 in place,
+    as its mel path launches it), SDPA's beside them; bf16 throughout."""
+    dt, tag = torch.bfloat16, "bf16"
     lib = _cuda.library("attention")
-    for T, B, scales in ATTN_CASES:
+    for T, B, H, scales in ATTN_CASES:
         for scale in scales:
             q, k, v = _attention_inputs(rng, B, T, H, scale, dt)
             want = A.reference_attention(q, k, v)
@@ -824,14 +832,22 @@ def attention_checks(checks, rng):
             views = [fused[..., i * H * 64:(i + 1) * H * 64].view(B, T, H, 64) for i in range(3)]
             k3_contiguous = torch.empty_like(q)
             A._launch(lib, _cuda.stream_of(q), q, k, v, k3_contiguous, B, T, H, H * 64, H * 64, k1=False)
-            label = f"T={T} scale={scale:g} {tag}"
+            label = f"T={T} scale={scale:g} {tag}" if H == 6 else f"{B}x{H}xT={T} scale={scale:g} {tag}"
             for name, got, ref in (
                     ("K1 attention (K1 contract)", A.flash_attention(q, k, v), want),
                     ("A flash_attention in place (K1 contract)", A.flash_attention(*views), want),
                     ("A attention_from_qkv (K3 contract)", A.attention_from_qkv(fused, H), want.reshape(B, T, -1)),
                     ("A contiguous (K3 contract)", k3_contiguous, want)):
                 checks.compare(f"{name} {label}", got, ref, TOL[dt])
-            if T == 1500 and scale == 1.0:
+            if T == 1500 and scale == 1.0 and H == 20:
+                b_ms, by = bound_ms(4 * B * T * H * 64 * q.element_size(), 4 * B * H * T * T * 64, dt)
+                sdpa, sdpa_dev = _sdpa_ms(q, k, v, 5)
+                call = lambda: A.attention_from_qkv(fused, H)
+                emit("timing", name="attention", dtype=tag, contract="K3",
+                     shapes="large-v3 mel path: 16 seq x 20 heads x T=1500, in place", ms=median_ms(call, 5),
+                     plain_ms=median_ms(lambda: A.reference_attention(*views), 5), bound_ms=b_ms, bound_by=by,
+                     library_ms=sdpa, device_ms=device_ms(call, 5), library_device_ms=sdpa_dev)
+            elif T == 1500 and scale == 1.0:
                 b_ms, by = bound_ms(4 * B * T * H * 64 * q.element_size(), 4 * B * H * T * T * 64, dt)
                 sdpa, sdpa_dev = _sdpa_ms(q, k, v, 5)
                 for contract, call, plain in (
@@ -846,6 +862,7 @@ def attention_checks(checks, rng):
     # heads x T = 256 (a train step, timed) and 64 (a short batch). A
     # persistent block takes several items there, so its ring's stage index
     # and parity wrap around.
+    H = 6
     for B in (64, 128):
         T = 256
         q, k, v = _attention_inputs(rng, B, T, H, 1.0, dt)
@@ -911,20 +928,25 @@ def host_cost(lib, n=20000, calls=2000):
 def arithmetic_checks(checks):
     """Kernel A's arithmetic where it is cheaper than the contract's plain
     form, on the card's own code: K3's exp (ex2.approx of x log2 e, rounded
-    to bf16) against round(expf(x)) through torch.exp for every bf16 x <= 0,
+    to bf16; and the two-pass path's (2^(x log2 e / 2))^2) against
+    round(expf(x)) through torch.exp for every bf16 x <= 0,
     and K1's division (Markstein's correction through the reciprocal)
     against the IEEE quotient of torch's tensor division on 4e6 pairs (e in
     (0, 1] down to subnormals, l in [1, 2000] and just above 1), every
     quotient in the normal range."""
     lib, stream = _cuda.library("attention"), torch.cuda.current_stream().cuda_stream
     lib.gw_attention_exp_bf16.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.gw_attention_exp_bf16_sq.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.gw_attention_div.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     got = torch.empty(65536, dtype=torch.int16, device="cuda")
     _cuda.check(lib.gw_attention_exp_bf16(got.data_ptr(), stream), "attention exp")
+    got_sq = torch.empty(65536, dtype=torch.int16, device="cuda")  # the two-pass path's exp
+    _cuda.check(lib.gw_attention_exp_bf16_sq(got_sq.data_ptr(), stream), "attention exp (two passes)")
     x = torch.arange(65536, dtype=torch.int32, device="cuda").to(torch.int16).view(torch.bfloat16)
     want = torch.exp(x.float()).to(torch.bfloat16).view(torch.int16)
     sel = x.float() <= 0
     n_exp = int((got[sel] != want[sel]).sum())
+    n_exp_sq = int((got_sq[sel] != want[sel]).sum())
     gen = torch.Generator(device="cuda").manual_seed(4)
     n = 4_000_000
     e = torch.exp(-104 * torch.rand(n, device="cuda", generator=gen))
@@ -941,6 +963,10 @@ def arithmetic_checks(checks):
          ok=n_exp == 0 and n_div == 0)
     if n_exp or n_div:
         checks.failed.append("A arithmetic")
+    emit("parity", check="A: K3's exp in the two-pass path, (2^(x log2 e / 2))^2, vs round(expf(x)) on every bf16 x <= 0",
+         exp_inputs=int(sel.sum()), exp_mismatches=n_exp_sq, ok=n_exp_sq == 0)
+    if n_exp_sq:
+        checks.failed.append("A arithmetic (two-pass exp)")
 
 
 def int8_arithmetic_check(checks):
@@ -1921,16 +1947,19 @@ def _mel_forward(checks, smi, label, task, batches, samples_per_batch):
     (TOL), the first 2 batches' logits (BF16_VS_PLAIN times the plain bf16
     layer's distance; the span gate of the search printed beside it)."""
     from gwkit_torch.models.whisper import WhisperEncoder
+    from gwkit_torch.utils.tracing import COUNTERS
 
     enc = task.cfg.encoder
     task.forward(batches[0])  # prepares (folds) the encoder; cuDNN picks its algorithms
     torch.cuda.synchronize()
     _cuda.reset_counts()
+    two_pass = COUNTERS["attention_two_pass_launches"]
     t0 = time.time()
     logits = [task.forward(x) for x in batches]
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches, plain = dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS)
+    two_pass = COUNTERS["attention_two_pass_launches"] - two_pass
     nb, nl = len(batches), enc.n_layers
     expect = {"attention": nl * nb, "attention_bwd": 0, "ln_gemm": 2 * nl * nb, "fused_mlp": nl * nb, "int8_gemm": 0}
     out = torch.cat(logits).float()
@@ -1942,6 +1971,10 @@ def _mel_forward(checks, smi, label, task, batches, samples_per_batch):
          plain_calls=plain, logits_finite=bool(torch.isfinite(out).all()), ok=ok)
     if not ok:
         checks.failed.append(f"{label} launch counters")
+    # at T = 1500 every layer's kernel A takes the two-pass path: one a layer a batch
+    emit(f"{label}_two_pass", attention_two_pass_launches=two_pass, expected=nl * nb, ok=two_pass == nl * nb)
+    if two_pass != nl * nb:
+        checks.failed.append(f"{label}: {two_pass} two-pass launches of kernel A, not {nl * nb}")
     groups = profiled(f"{label}_profile", lambda: [task.forward(x) for x in batches], batches=nb,
                       samples=nb * samples_per_batch)
     seqs, T = samples_per_batch * task.cfg.n_detectors, task.n_frames // 2
@@ -3546,11 +3579,18 @@ def main():
     records["attention_bwd"] = attention_bwd_phase(checks)
     layer_grad_phase(checks)
     records["int8_gemm"] = int8_phase(checks)
+    two_pass_before_search = COUNTERS["attention_two_pass_launches"]
     bf16_search = search_phase(checks, smi)
     search = bf16_search["launches"]
     search_stream = stream_search_phase(checks, smi, bf16_search)
     del bf16_search["task"]
     search_int8, int8_task = int8_search_phase(checks, smi, bf16_search)
+    # the searches' encoder sees T = 256: kernel A's one-pass path only
+    two_pass_search = COUNTERS["attention_two_pass_launches"] - two_pass_before_search
+    emit("search_two_pass", phases="4, 4c, 4b", attention_two_pass_launches=two_pass_search,
+         ok=two_pass_search == 0)
+    if two_pass_search:
+        checks.failed.append(f"{two_pass_search} two-pass launches of kernel A in the search phases")
     server_phase(checks, int8_task)
     del int8_task
     torch.cuda.empty_cache()

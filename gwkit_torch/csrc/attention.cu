@@ -40,24 +40,54 @@
 //  3. For T <= 256 (every main path) one pass: the warpgroup's 64 x T f32
 //     scores are held in 128 registers a thread (setmaxnreg gives the
 //     consumers 232), so the exact max, the sums and p come from them with
-//     nothing recomputed. For T > 256 two passes stream the key tiles
-//     through the ring: pass 1 keeps the running exact max (and K1's online
-//     f32 row sum) in registers, pass 2 recomputes each S tile and
-//     accumulates P V. With the max exact, K3's p is the one-pass p bit for
-//     bit; the extra Q K^T is the price. In both, S of tile i + 1 is in
-//     flight while tile i is reduced. At T = 256 one pass takes 0.86x (K3)
-//     and 0.73x (K1) of the two-pass path's device time on an H100
+//     nothing recomputed. At T = 256 one pass takes 0.95x (K3) and 0.75x
+//     (K1) of the two-pass path's device time on an H100
 //     (scripts/torch_attention_passes.py builds with GW_TWO_PASS_ONLY).
+//     For T > 256 two passes stream the key tiles through the ring: pass 1
+//     keeps the exact max (and K1's online f32 row sum) in registers, pass 2
+//     recomputes each S tile, forms p and accumulates P V. With the max
+//     exact, K3's p is the one-pass p bit for bit, and O is never rescaled;
+//     the extra Q K^T is the price. The two passes are one software
+//     pipeline (two_pass_attention below), so that the tensor core never
+//     waits for a tile's softmax:
+//      - step i of an item's pass 2 issues three products: P V of tile
+//        i - 1, S of tile i + 1 and S of the next item's tile i (its pass
+//        1); then one wait retires the previous step's three (S of tile i,
+//        the next item's S of tile i - 1, P V of tile i - 2), and while the
+//        new three run the consumers form p of tile i and take the next
+//        item's masked max of tile i - 1. Two buffers each of S, of p and of
+//        the next item's S: 240 registers a consumer (setmaxnreg leaves the
+//        producer thread 24). P V accumulates in the same order as one pass
+//        would, so O keeps its bits;
+//      - so each step queues about 384 tensor cycles a warpgroup around one
+//        softmax, where pass 1 alone was a tensor-only stretch and pass 2
+//        had MUFU as a co-limit. A block's first item runs its pass 1
+//        alone; its last item's pass 2 multiplies a tile whose max it drops.
+//        K1's pass 1 takes 32 expf a tile for its row sum: it runs alone
+//        before each item's pass 2 (riding measured slower);
+//      - a ring stage holds K and V of the item in pass 2 and K of the next
+//        item (24 KB, 7 stages), so each K tile is read twice and each V
+//        tile once, as before; Q has three slots (the item in pass 2, the
+//        next, and one loading), so a slot is refilled an item ahead;
+//      - the softmax's instructions, not the products, set the pace (on an
+//        H100 a build of this path without its products took 0.74x the time
+//        of one with them, and one without loads 0.97x): only the first and
+//        last pairs of steps mask (a middle tile ends before T), each step is
+//        one basic block, and K3's exp and bf16 widening take fewer
+//        instructions (below).
 //  4. Blocks are large and persistent: the producer keeps the next items'
-//     Q and key tiles coming into a ring of 12 stages (K and V, 16 KB each)
-//     while the consumers compute. Two items of a head run side by side on
-//     two SMs, so K and V come from L2 the second time.
+//     Q and key tiles coming into the ring (one pass: 12 stages of K and V,
+//     16 KB each) while the consumers compute. Two items of a head run side
+//     by side on two SMs, so K and V come from L2 the second time.
 // The contract's arithmetic, at fewer instructions (the softmax, not the
 // products, bounds this kernel):
 //  * K3's exp(x) is ex2.approx(x log2 e): its argument is a bf16 value, and
 //    for every bf16 x <= 0 the bf16-rounded result equals round(expf(x))
 //    (gw_attention_exp_bf16 below lets chip_smoke.py check all 2^15), so p
 //    is unchanged. Each pair of keys takes one packed conversion a rounding.
+//    The two-pass path takes (2^(x log2 e / 2))^2 (exp_bf16_sq), which
+//    rounds to the same bf16 for all 2^15 (gw_attention_exp_bf16_sq) without
+//    ex2.approx's test for a subnormal result.
 //  * K1's p = e / l divides by Markstein's correction of e (1 / l): the IEEE
 //    quotient for every quotient in the normal range (div_rn; chip_smoke.py
 //    holds gw_attention_div against the IEEE division). Every exp of K1,
@@ -93,7 +123,7 @@ struct HopperAttn {
   static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232, BLOCK_REGS = 168;
   static_assert(PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= (CONSUMERS + 1) * BLOCK_REGS,
                 "setmaxnreg budget exceeds the block's registers");
-  static constexpr int STAGES = 12;  // three one-pass items
+  static constexpr int STAGES = 12;  // three one-pass items (the two-pass path: TwoPassAttn)
   static constexpr int ONE_PASS_MAX_T = 256;  // 4 key tiles: 128 score registers a thread
   static constexpr int MAX_TILES = ONE_PASS_MAX_T / KEYS;
   static constexpr uint32_t TILE = ROWS * HD * sizeof(bf16);  // 8 KB, one TMA box
@@ -103,6 +133,28 @@ struct HopperAttn {
   static constexpr int N_BARS = 4 + 2 * STAGES;  // q_full[2], q_empty[2], full[S], empty[S]
   static constexpr size_t SMEM = 1024 + BAR_OFF + N_BARS * sizeof(uint64_t);  // + alignment
   static constexpr uint32_t CONSUMER_WARPS = CONSUMERS * 4;
+};
+
+// The two-pass path's shared memory (design note 3): Q in three slots of an
+// item's two 64-row tiles, and a ring of stages of three tiles: K and V of
+// the item in pass 2 and K of the next item (in its pass 1). 1024 + 48 KB +
+// 7 x 24 KB + the barriers: 222,368 bytes of the 232,448 a block may have.
+struct TwoPassAttn {
+  static constexpr int STAGES = 7, Q_SLOTS = 3;
+  // the consumers hold two S, two p, two of the next item's S and O in
+  // flight: 24 registers for the producer thread, 240 for them (504 = 3 x 168)
+  static constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+  static_assert(PRODUCER_REGS + HopperAttn::CONSUMERS * CONSUMER_REGS <=
+                    (HopperAttn::CONSUMERS + 1) * HopperAttn::BLOCK_REGS,
+                "setmaxnreg budget exceeds the block's registers");
+  static constexpr uint32_t TILE = HopperAttn::TILE;
+  static constexpr size_t K_OFF = 0, V_OFF = TILE, KN_OFF = 2 * TILE, STAGE_BYTES = 3 * TILE;
+  static constexpr size_t Q_OFF = 0;  // [slot][warpgroup]
+  static constexpr size_t STAGE_OFF = Q_OFF + (size_t)Q_SLOTS * HopperAttn::CONSUMERS * TILE;
+  static constexpr size_t BAR_OFF = STAGE_OFF + (size_t)STAGES * STAGE_BYTES;
+  static constexpr int N_BARS = 2 * Q_SLOTS + 2 * STAGES;  // q_full[Q], q_empty[Q], full[S], empty[S]
+  static constexpr size_t SMEM = 1024 + BAR_OFF + N_BARS * sizeof(uint64_t);
+  static_assert(SMEM <= 232448, "the two-pass ring exceeds a block's shared memory");
 };
 
 // the thread's max over its values of rows g (i = 0) and g + 8 (i = 1)
@@ -121,6 +173,20 @@ __device__ __forceinline__ float exp_bf16_arg(float x) {
   float y;
   asm("ex2.approx.f32 %0, %1;\n" : "=f"(y) : "f"(__fmul_rn(x, 1.4426950408889634f)));
   return y;
+}
+
+// exp(x) for a bf16 x <= 0 as the two-pass path takes it: (2^(y / 2))^2 for
+// y = x log2 e, by one FMUL (by log2 e / 2, exact: the product is the FMUL's
+// y halved), ex2.approx.ftz and one FMUL. 2^(y / 2) is normal for every
+// y >= -252, so the square is the subnormal handling that ex2.approx takes
+// a test and two predicated multiplies for. Rounded to bf16 it is
+// round(expf(x)) for every such x, all 2^15 of them, as exp_bf16_arg is
+// (gw_attention_exp_bf16_sq below; chip_smoke.py checks both): p keeps its
+// bits at three instructions an exp instead of five.
+__device__ __forceinline__ float exp_bf16_sq(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(__fmul_rn(x, 0.7213475204444817f)));
+  return __fmul_rn(y, y);
 }
 
 // K3's p of one 64-key tile: p = round(exp(round(s - m))), summed into this
@@ -143,6 +209,29 @@ __device__ __forceinline__ void p_k3(const float (&s)[32], const float (&m)[2], 
         l[i] += __low2float(e);
         l[i] += __high2float(e);
         p[kk][2 * h + i] = *reinterpret_cast<const uint32_t*>(&e);
+      }
+}
+
+// p_k3 for the two-pass pipeline, the same bits at fewer instructions: the
+// exp is exp_bf16_sq, and each bf16 of a pair widens to f32 by one integer
+// instruction (u << 16, or u & 0xffff0000 for the high half) where
+// __high2float takes two.
+__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+__device__ __forceinline__ void p_k3_two_pass(const float (&s)[32], const float (&m)[2], float (&l)[2],
+                                              uint32_t (&p)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = 4 * (2 * kk + h) + 2 * i;
+        const uint32_t x = hopper::pack_bf16(s[r] - m[i], s[r + 1] - m[i]);
+        const uint32_t e = hopper::pack_bf16(exp_bf16_sq(bf16_lo(x)), exp_bf16_sq(bf16_hi(x)));
+        l[i] += bf16_lo(e);
+        l[i] += bf16_hi(e);
+        p[kk][2 * h + i] = e;
       }
 }
 
@@ -171,6 +260,336 @@ __device__ __forceinline__ void p_k1(const float (&e)[32], const float (&l)[2], 
       }
 }
 
+// The two-pass path's epilogue of an item (sequence b, head h, query tile
+// qt), for one consumer warpgroup: K3 divides by the f32 sum, K1 casts (and
+// stores the backward's row state when asked); each quad transposes its
+// row's words so a lane stores 16 contiguous bytes. The one-pass path's
+// epilogue in the kernel below is the same code: called from there as a
+// function it compiled to other SASS, and that path is kept as it was.
+template <bool K1>
+__device__ __forceinline__ void store_item(const float (&o_acc)[32], const float (&m)[2], float (&l)[2],
+                                           float (&rl)[2], bf16* __restrict__ o, int T_len, int H, int ld_out,
+                                           float* __restrict__ row_m, float* __restrict__ row_l,
+                                           float* __restrict__ o32, int Tp, int bh, int qt, int b, int h, int wg,
+                                           int wl, int g, int x) {
+  typedef HopperAttn L;
+  using namespace hopper;
+  if constexpr (!K1) {
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+    rl[0] = __frcp_rn(l[0]);
+    rl[1] = __frcp_rn(l[1]);
+  }
+  const int row0 = qt * L::ITEM_ROWS + wg * L::ROWS + wl * 16 + g;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    uint32_t wv[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float a = o_acc[4 * j + 2 * i], c = o_acc[4 * j + 2 * i + 1];
+      wv[j] = K1 ? pack_bf16(a, c)
+                 : pack_bf16(div_rn<false>(a, l[i], rl[i]), div_rn<false>(c, l[i], rl[i]));
+    }
+    const int t = row0 + 8 * i;
+    if constexpr (K1) {
+      if (o32 != nullptr) {  // the backward's row state (attention_bwd.cu)
+        if (x == 0 && t < Tp) {
+          row_m[(long long)bh * Tp + t] = m[i];
+          row_l[(long long)bh * Tp + t] = l[i];
+        }
+        float* dst32 = o32 + (((long long)b * T_len + t) * H + h) * L::HD + 2 * x;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (t < T_len)
+            *reinterpret_cast<float2*>(dst32 + 8 * j) =
+                make_float2(o_acc[4 * j + 2 * i], o_acc[4 * j + 2 * i + 1]);
+      }
+    }
+    bf16* dst = o + ((long long)b * T_len + t) * ld_out + (long long)h * L::HD;
+#pragma unroll
+    for (int grp = 0; grp < 2; ++grp) {
+      uint32_t a4[4] = {wv[4 * grp], wv[4 * grp + 1], wv[4 * grp + 2], wv[4 * grp + 3]};
+      quad_transpose(a4, x);
+      if (t < T_len)
+        *reinterpret_cast<uint4*>(dst + 8 * (4 * grp + x)) = make_uint4(a4[0], a4[1], a4[2], a4[3]);
+    }
+  }
+}
+
+// T > 256: two passes as one software pipeline (design note 3). RIDE (K3):
+// the next item's pass 1 rides in this item's pass 2; else (K1) each item
+// runs its pass 1 alone, then its pass 2.
+template <bool K1>
+__device__ __forceinline__ void two_pass_attention(const CUtensorMap& qmap, const CUtensorMap& kmap,
+                                                   const CUtensorMap& vmap, bf16* __restrict__ o, int T_len, int H,
+                                                   int n_qt, int n_items, int ld_out, float* __restrict__ row_m,
+                                                   float* __restrict__ row_l, float* __restrict__ o32, int Tp) {
+  typedef HopperAttn A;
+  typedef TwoPassAttn L;
+  using namespace hopper;
+  constexpr bool RIDE = !K1;  // K1's pass 1 takes 32 expf a tile: riding measured slower
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t *q_full = bars, *q_empty = bars + L::Q_SLOTS, *full = bars + 2 * L::Q_SLOTS,
+           *empty = bars + 2 * L::Q_SLOTS + L::STAGES;
+  auto q_tile = [&](int slot, int wg) { return smem + L::Q_OFF + (size_t)(A::CONSUMERS * slot + wg) * L::TILE; };
+  auto stage = [&](int st) { return smem + L::STAGE_OFF + (size_t)st * L::STAGE_BYTES; };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < L::Q_SLOTS; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], A::CONSUMER_WARPS);
+    }
+    for (int i = 0; i < L::STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], A::CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // key tiles: an even count, so the pipeline alternates its two S and two p
+  // buffers without a branch (a last tile past T is all zeros and masked
+  // whole), and at least 4, as the pipeline peels its first and last pairs
+  const int nt0 = (T_len + A::KEYS - 1) / A::KEYS;
+  const int nt = nt0 < 4 ? 4 : nt0 + (nt0 & 1);
+
+  // the two roles are the two branches of one if, as setmaxnreg needs
+  if (warp >= A::CONSUMER_WARPS) {  // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::PRODUCER_REGS));
+    if (warp == A::CONSUMER_WARPS && lane == 0) {
+      Ring ring(L::STAGES), qs(L::Q_SLOTS);
+      auto load_q = [&](int w) {
+        const int bh = w / n_qt, qt = w - bh * n_qt, b = bh / H, h = bh - b * H;
+        mbar_wait(&q_empty[qs.idx], qs.phase ^ 1);
+        mbar_arrive_expect_tx(&q_full[qs.idx], A::CONSUMERS * L::TILE);
+        for (int c = 0; c < A::CONSUMERS; ++c)
+          tma_load_4d(q_tile(qs.idx, c), &qmap, &q_full[qs.idx], 0, h, qt * A::ITEM_ROWS + c * A::ROWS, b);
+        qs.advance();
+      };
+      // the nt stages of a pass, tile by tile: K and V of item w (none for
+      // w < 0) and K of item wn (none for wn < 0)
+      auto load_pass = [&](int w, int wn) {
+        const int b = w / n_qt / H, h = w / n_qt - b * H, bn = wn / n_qt / H, hn = wn / n_qt - bn * H;
+        const uint32_t bytes = ((w >= 0 ? 2u : 0u) + (wn >= 0 ? 1u : 0u)) * L::TILE;
+        for (int tile = 0; tile < nt; ++tile) {
+          mbar_wait(&empty[ring.idx], ring.phase ^ 1);
+          mbar_arrive_expect_tx(&full[ring.idx], bytes);
+          unsigned char* st = stage(ring.idx);
+          if (w >= 0) {
+            tma_load_4d(st + L::K_OFF, &kmap, &full[ring.idx], 0, h, tile * A::KEYS, b);
+            tma_load_4d(st + L::V_OFF, &vmap, &full[ring.idx], 0, h, tile * A::KEYS, b);
+          }
+          if (wn >= 0) tma_load_4d(st + L::KN_OFF, &kmap, &full[ring.idx], 0, hn, tile * A::KEYS, bn);
+          ring.advance();
+        }
+      };
+      int it = 0;
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
+        const int wn = RIDE && w + (int)gridDim.x < n_items ? w + (int)gridDim.x : -1;
+        if (!RIDE || it == 0) {  // pass 1 alone
+          load_q(w);
+          load_pass(-1, w);
+        }
+        if (wn >= 0) load_q(wn);
+        load_pass(w, wn);  // pass 2, and the next item's pass 1
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS));
+    // wg through a shuffle, so the compiler knows it (and the Q descriptors)
+    // to be warp-uniform and keeps them in uniform registers
+    const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0), wl = warp & 3, g = lane >> 2, x = lane & 3;
+    // ring: the oldest stage not released; ahead: the stage whose K the
+    // next S product of this item reads; at and prev: the stages of tiles i
+    // and i - 1 in pass 2's step i; qs: this item's Q slot
+    Ring ring(L::STAGES), ahead(L::STAGES), at(L::STAGES), qs(L::Q_SLOTS);
+    int prev = 0;
+    // o_acc: the output; s: S of tiles i and i + 1; t: the next item's S of
+    // tiles i - 1 and i; p: p of tiles i and i - 1 (the latter in its P V)
+    float o_acc[32], s[2][32], t[2][32];
+    uint32_t p[2][4][4];
+    // m, l: the row max and sum (K1: the f32 sum of exp(s - m), from pass 1;
+    // K3: the f32 sum of the rounded p, in pass 2); rl: 1 / l; mn, ln: the
+    // next item's, built in its pass 1
+    float m[2], l[2], rl[2], mn[2], ln[2];
+    uint64_t qdesc = 0, qn_desc = 0;
+    bool ride = false;  // a next item rides in this item's pass 2
+
+    auto release = [&]() {
+      if (lane == 0) mbar_arrive(&empty[ring.idx]);
+      ring.advance();
+    };
+    // S of this item's tile in stage `ahead`, from the K tile at `slot`
+    auto issue_s = [&](float (&acc)[32], size_t slot) {
+      mbar_wait(&full[ahead.idx], ahead.phase);
+      const uint64_t kdesc = desc_kmajor(stage(ahead.idx) + slot);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_ss<0>(acc, qdesc + 2 * kk, kdesc + 2 * kk, kk > 0);
+      wgmma_commit();
+      ahead.advance();
+    };
+    // pass 1 on tile i, its S complete: the masked max into mm (K1: with
+    // the f32 row sum ll, rescaled to each new max of the quad, in place;
+    // K3: this thread's share, the quad's max taken once the pass ends)
+    auto take1 = [&](float (&cur)[32], int i, float (&mm)[2], float (&ll)[2], bool mask) {
+      reg_fence(cur);
+      if (mask) mask_cols(cur, i * A::KEYS, T_len, x);
+      if constexpr (K1) {
+        float mx[2] = {-INFINITY, -INFINITY};
+        tile_max(cur, mx);
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const float m_new = fmaxf(mm[ii], quad_max(mx[ii]));
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            sum += expf(cur[4 * j + 2 * ii] - m_new);
+            sum += expf(cur[4 * j + 2 * ii + 1] - m_new);
+          }
+          ll[ii] = ll[ii] * expf(mm[ii] - m_new) + sum;
+          mm[ii] = m_new;
+        }
+      } else {
+        tile_max(cur, mm);
+        reg_fence(mm);  // the max taken here, before the next product into cur
+      }
+    };
+    // pass 2 on tile i, its S complete: p into pc (K3: summed into l)
+    auto take2 = [&](float (&cur)[32], int i, uint32_t (&pc)[4][4], bool mask) {
+      reg_fence(cur);
+      if (mask) mask_cols(cur, i * A::KEYS, T_len, x);
+      if constexpr (K1) {
+        exp_k1<false>(cur, m, l);
+        p_k1(cur, l, rl, pc);
+      } else {
+        p_k3_two_pass(cur, m, l, pc);
+        reg_fence(l);  // the sum taken here, as take1's max
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) reg_fence(pc[kk]);
+    };
+    // pass 2's step i: issue P V of tile i - 1 (pv), S of tile i + 1 (more)
+    // and the next item's S of tile i into tn (without a next item, of this
+    // item's tile, its max unused); retire the previous step's products: S of
+    // tile i, the next item's S of tile i - 1 (in tp) and P V of tile i - 2;
+    // release tile i - 2's stage (rel); then, while the three run, form p of
+    // tile i and take the next item's max of tile i - 1 (take). One wait a
+    // step, right after the products it lets run. cur, nxt: S of tiles i and
+    // i + 1; pc, pp: p of tiles i and i - 1. Without RIDE only P V and S are
+    // issued. mask: tiles i and i - 1 may reach past T (in the first and last
+    // pairs of steps only: a middle tile i <= nt - 3 <= nt0 - 2 ends before T).
+    auto step = [&](float (&cur)[32], float (&nxt)[32], float (&tp)[32], float (&tn)[32], uint32_t (&pc)[4][4],
+                    uint32_t (&pp)[4][4], int i, bool pv, bool rel, bool more, bool take, bool mask) {
+      wgmma_fence();
+      if (pv) {
+        const uint64_t vdesc = desc_mnmajor(stage(prev) + L::V_OFF);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n64k16_rs<1>(o_acc, pp[kk], vdesc + 128 * kk, i > 1 || kk > 0);
+      }
+      wgmma_commit();
+      if (more)
+        issue_s(nxt, L::K_OFF);
+      else
+        wgmma_commit();
+      if constexpr (RIDE) {
+        const uint64_t kdesc = desc_kmajor(stage(at.idx) + (ride ? L::KN_OFF : L::K_OFF));
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_ss<0>(tn, qn_desc + 2 * kk, kdesc + 2 * kk, kk > 0);
+        wgmma_commit();
+        wgmma_wait<3>();
+      } else {
+        wgmma_wait<2>();
+      }
+      if (rel) release();
+      take2(cur, i, pc, mask);
+      if constexpr (RIDE)
+        if (take) take1(tp, i - 1, mn, ln, mask);
+      prev = at.idx;
+      at.advance();
+    };
+
+    int it = 0;
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
+      const int bh = w / n_qt, qt = w - bh * n_qt, b = bh / H, h = bh - b * H;
+      ride = RIDE && w + (int)gridDim.x < n_items;
+      mbar_wait(&q_full[qs.idx], qs.phase);
+      qdesc = desc_kmajor(q_tile(qs.idx, wg));
+      if (!RIDE || it == 0) {
+        // pass 1 alone, S of tile i + 1 multiplied while tile i is reduced;
+        // its last product is pass 2's first
+        m[0] = m[1] = -INFINITY;
+        l[0] = l[1] = 0.f;
+        issue_s(s[0], L::KN_OFF);
+        for (int i = 0; i < nt; i += 2) {
+          issue_s(s[1], L::KN_OFF);
+          wgmma_wait<1>();
+          take1(s[0], i, m, l, true);
+          release();
+          issue_s(s[0], i + 2 < nt ? L::KN_OFF : L::K_OFF);
+          wgmma_wait<1>();
+          take1(s[1], i + 1, m, l, true);
+          release();
+        }
+      } else {  // pass 1 rode in the last item's pass 2
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          m[ii] = mn[ii];
+          l[ii] = ln[ii];
+        }
+        issue_s(s[0], L::K_OFF);
+      }
+      // the next item's Q (loaded after this item's pass 1 alone, if any)
+      Ring qn = qs;
+      qn.advance();
+      if (ride) mbar_wait(&q_full[qn.idx], qn.phase);
+      qn_desc = ride ? desc_kmajor(q_tile(qn.idx, wg)) : qdesc;
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        if constexpr (K1) {
+          l[ii] = quad_sum(l[ii]);
+          rl[ii] = __frcp_rn(l[ii]);
+        } else {
+          m[ii] = quad_max(m[ii]);
+          l[ii] = 0.f;
+        }
+        mn[ii] = -INFINITY;
+        ln[ii] = 0.f;
+      }
+
+      // pass 2, S of tile 0 in flight
+      at = ring;
+      step(s[0], s[1], t[1], t[0], p[0], p[1], 0, false, false, true, false, true);
+      step(s[1], s[0], t[0], t[1], p[1], p[0], 1, true, false, true, true, true);
+      for (int i = 2; i < nt - 2; i += 2) {
+        step(s[0], s[1], t[1], t[0], p[0], p[1], i, true, true, true, true, false);
+        step(s[1], s[0], t[0], t[1], p[1], p[0], i + 1, true, true, true, true, false);
+      }
+      step(s[0], s[1], t[1], t[0], p[0], p[1], nt - 2, true, true, true, true, true);
+      step(s[1], s[0], t[0], t[1], p[1], p[0], nt - 1, true, true, false, true, true);
+      // P V of the last tile, then every product of the item is complete
+      wgmma_fence();
+      const uint64_t vdesc = desc_mnmajor(stage(prev) + L::V_OFF);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_rs<1>(o_acc, p[1][kk], vdesc + 128 * kk, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(o_acc);
+      if constexpr (RIDE) take1(t[1], nt - 1, mn, ln, true);
+      release();
+      release();
+      if (lane == 0) mbar_arrive(&q_empty[qs.idx]);
+      qs.advance();
+      store_item<K1>(o_acc, m, l, rl, o, T_len, H, ld_out, row_m, row_l, o32, Tp, bh, qt, b, h, wg, wl, g, x);
+    }
+  }
+}
+
 template <bool K1, bool ONE_PASS>
 __global__ void __launch_bounds__(HopperAttn::THREADS, 1)
 hopper_attention_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -178,286 +597,193 @@ hopper_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int T_len,
                         int H, int n_qt, int n_items, int ld_out, float* __restrict__ row_m,
                         float* __restrict__ row_l, float* __restrict__ o32, int Tp) {
-  typedef HopperAttn L;
-  using namespace hopper;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
-  uint64_t *q_full = bars, *q_empty = bars + 2, *full = bars + 4, *empty = bars + 4 + L::STAGES;
-  auto q_tile = [&](int qb, int wg) { return smem + L::Q_OFF + (size_t)(2 * qb + wg) * L::TILE; };
-  auto k_tile = [&](int st) { return smem + L::STAGE_OFF + (size_t)st * 2 * L::TILE; };
-  auto v_tile = [&](int st) { return smem + L::STAGE_OFF + (size_t)st * 2 * L::TILE + L::TILE; };
+  if constexpr (!ONE_PASS) {
+    two_pass_attention<K1>(qmap, kmap, vmap, o, T_len, H, n_qt, n_items, ld_out, row_m, row_l, o32, Tp);
+  } else {
+    typedef HopperAttn L;
+    using namespace hopper;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+    uint64_t *q_full = bars, *q_empty = bars + 2, *full = bars + 4, *empty = bars + 4 + L::STAGES;
+    auto q_tile = [&](int qb, int wg) { return smem + L::Q_OFF + (size_t)(2 * qb + wg) * L::TILE; };
+    auto k_tile = [&](int st) { return smem + L::STAGE_OFF + (size_t)st * 2 * L::TILE; };
+    auto v_tile = [&](int st) { return smem + L::STAGE_OFF + (size_t)st * 2 * L::TILE + L::TILE; };
 
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(&q_full[i], 1);
-      mbar_init(&q_empty[i], L::CONSUMER_WARPS);
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < 2; ++i) {
+        mbar_init(&q_full[i], 1);
+        mbar_init(&q_empty[i], L::CONSUMER_WARPS);
+      }
+      for (int i = 0; i < L::STAGES; ++i) {
+        mbar_init(&full[i], 1);
+        mbar_init(&empty[i], L::CONSUMER_WARPS);
+      }
+      mbar_init_fence();
     }
-    for (int i = 0; i < L::STAGES; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], L::CONSUMER_WARPS);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
+    __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // key tiles; two passes take an even count (a last tile past T is all
-  // zeros and masked whole) so their S pipeline alternates two buffers
-  // without a branch
-  const int nt0 = (T_len + L::KEYS - 1) / L::KEYS;
-  const int nt = ONE_PASS ? L::MAX_TILES : nt0 + (nt0 & 1);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    // key tiles; two passes take an even count (a last tile past T is all
+    // zeros and masked whole) so their S pipeline alternates two buffers
+    // without a branch
+    const int nt0 = (T_len + L::KEYS - 1) / L::KEYS;
+    const int nt = ONE_PASS ? L::MAX_TILES : nt0 + (nt0 & 1);
 
-  // the two roles are the two branches of one if, as setmaxnreg needs
-  if (warp >= L::CONSUMER_WARPS) {  // producer: one thread issues every load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::PRODUCER_REGS));
-    if (warp == L::CONSUMER_WARPS && lane == 0) {
+    // the two roles are the two branches of one if, as setmaxnreg needs
+    if (warp >= L::CONSUMER_WARPS) {  // producer: one thread issues every load
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::PRODUCER_REGS));
+      if (warp == L::CONSUMER_WARPS && lane == 0) {
+        Ring ring(L::STAGES);
+        int it = 0;
+        for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
+          const int bh = w / n_qt, qt = w - bh * n_qt, b = bh / H, h = bh - b * H;
+          const int qb = it & 1;
+          mbar_wait(&q_empty[qb], ((it >> 1) & 1) ^ 1);
+          mbar_arrive_expect_tx(&q_full[qb], L::CONSUMERS * L::TILE);
+          for (int c = 0; c < L::CONSUMERS; ++c)
+            tma_load_4d(q_tile(qb, c), &qmap, &q_full[qb], 0, h, qt * L::ITEM_ROWS + c * L::ROWS, b);
+          // one pass: the nt tiles with K and V; two passes: the nt K tiles,
+          // then K and V
+          for (int st = 0; st < (ONE_PASS ? nt : 2 * nt); ++st) {
+            const int tile = ONE_PASS || st < nt ? st : st - nt;
+            const bool with_v = ONE_PASS || st >= nt;
+            mbar_wait(&empty[ring.idx], ring.phase ^ 1);
+            mbar_arrive_expect_tx(&full[ring.idx], with_v ? 2 * L::TILE : L::TILE);
+            tma_load_4d(k_tile(ring.idx), &kmap, &full[ring.idx], 0, h, tile * L::KEYS, b);
+            if (with_v) tma_load_4d(v_tile(ring.idx), &vmap, &full[ring.idx], 0, h, tile * L::KEYS, b);
+            ring.advance();
+          }
+        }
+      }
+    } else {
+      // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each item
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS));
+      const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, x = lane & 3;
       Ring ring(L::STAGES);
       int it = 0;
       for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
         const int bh = w / n_qt, qt = w - bh * n_qt, b = bh / H, h = bh - b * H;
         const int qb = it & 1;
-        mbar_wait(&q_empty[qb], ((it >> 1) & 1) ^ 1);
-        mbar_arrive_expect_tx(&q_full[qb], L::CONSUMERS * L::TILE);
-        for (int c = 0; c < L::CONSUMERS; ++c)
-          tma_load_4d(q_tile(qb, c), &qmap, &q_full[qb], 0, h, qt * L::ITEM_ROWS + c * L::ROWS, b);
-        // one pass: the nt tiles with K and V; two passes: the nt K tiles,
-        // then K and V
-        for (int st = 0; st < (ONE_PASS ? nt : 2 * nt); ++st) {
-          const int tile = ONE_PASS || st < nt ? st : st - nt;
-          const bool with_v = ONE_PASS || st >= nt;
-          mbar_wait(&empty[ring.idx], ring.phase ^ 1);
-          mbar_arrive_expect_tx(&full[ring.idx], with_v ? 2 * L::TILE : L::TILE);
-          tma_load_4d(k_tile(ring.idx), &kmap, &full[ring.idx], 0, h, tile * L::KEYS, b);
-          if (with_v) tma_load_4d(v_tile(ring.idx), &vmap, &full[ring.idx], 0, h, tile * L::KEYS, b);
-          ring.advance();
-        }
-      }
-    }
-  } else {
-    // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each item
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::CONSUMER_REGS));
-    const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, x = lane & 3;
-    Ring ring(L::STAGES);
-    int it = 0;
-    for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++it) {
-      const int bh = w / n_qt, qt = w - bh * n_qt, b = bh / H, h = bh - b * H;
-      const int qb = it & 1;
-      mbar_wait(&q_full[qb], (it >> 1) & 1);
-      const uint64_t qdesc = desc_kmajor(q_tile(qb, wg));
-      // o_acc: the output; m, l: the row max and sum; rl: 1 / l
-      float o_acc[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rl[2];
+        mbar_wait(&q_full[qb], (it >> 1) & 1);
+        const uint64_t qdesc = desc_kmajor(q_tile(qb, wg));
+        // o_acc: the output; m, l: the row max and sum; rl: 1 / l
+        float o_acc[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, rl[2];
 
-      if constexpr (ONE_PASS) {
-        // the item's MAX_TILES tiles sit in stages ring.idx, ring.idx + 1, ...
-        // (mod STAGES); tiles past T arrive as zeros and are masked whole
-        int sidx[L::MAX_TILES];
+        if constexpr (ONE_PASS) {
+          // the item's MAX_TILES tiles sit in stages ring.idx, ring.idx + 1, ...
+          // (mod STAGES); tiles past T arrive as zeros and are masked whole
+          int sidx[L::MAX_TILES];
 #pragma unroll
-        for (int c = 0; c < L::MAX_TILES; ++c) {
-          sidx[c] = ring.idx + c < L::STAGES ? ring.idx + c : ring.idx + c - L::STAGES;
-          mbar_wait(&full[sidx[c]], ring.phase ^ (ring.idx + c >= L::STAGES ? 1u : 0u));
-        }
-        // S in two groups of two tiles: the first pair is masked and reduced
-        // while the second is multiplied
-        float s[L::MAX_TILES][32];
-        wgmma_fence();
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-            for (int c = 2 * half; c < 2 * half + 2; ++c)
-              wgmma_m64n64k16_ss<0>(s[c], qdesc + 2 * kk, desc_kmajor(k_tile(sidx[c])) + 2 * kk, kk > 0);
-          wgmma_commit();
-        }
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          if (half == 0)
-            wgmma_wait<1>();
-          else
-            wgmma_wait<0>();
-#pragma unroll
-          for (int c = 2 * half; c < 2 * half + 2; ++c) {
-            reg_fence(s[c]);
-            mask_cols(s[c], c * L::KEYS, T_len, x);
-            tile_max(s[c], m);
+          for (int c = 0; c < L::MAX_TILES; ++c) {
+            sidx[c] = ring.idx + c < L::STAGES ? ring.idx + c : ring.idx + c - L::STAGES;
+            mbar_wait(&full[sidx[c]], ring.phase ^ (ring.idx + c >= L::STAGES ? 1u : 0u));
           }
-        }
-        if (lane == 0) mbar_arrive(&q_empty[qb]);
-        m[0] = quad_max(m[0]);
-        m[1] = quad_max(m[1]);
-
-        uint32_t p[L::MAX_TILES][4][4];
-        if constexpr (K1) {
-#pragma unroll
-          for (int c = 0; c < L::MAX_TILES; ++c) exp_k1<true>(s[c], m, l);
-          l[0] = quad_sum(l[0]);
-          l[1] = quad_sum(l[1]);
-          rl[0] = __frcp_rn(l[0]);
-          rl[1] = __frcp_rn(l[1]);
-#pragma unroll
-          for (int c = 0; c < L::MAX_TILES; ++c) p_k1(s[c], l, rl, p[c]);
-        } else {
-#pragma unroll
-          for (int c = 0; c < L::MAX_TILES; ++c) p_k3(s[c], m, l, p[c]);
-        }
-#pragma unroll
-        for (int c = 0; c < L::MAX_TILES; ++c)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) reg_fence(p[c][kk]);
-        wgmma_fence();
-#pragma unroll
-        for (int c = 0; c < L::MAX_TILES; ++c)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_m64n64k16_rs<1>(o_acc, p[c][kk], desc_mnmajor(v_tile(sidx[c])) + 128 * kk,
-                                  c > 0 || kk > 0);
-        wgmma_commit();
-        wgmma_wait<0>();
-        reg_fence(o_acc);
-#pragma unroll
-        for (int c = 0; c < L::MAX_TILES; ++c) {
-          if (lane == 0) mbar_arrive(&empty[ring.idx]);
-          ring.advance();
-        }
-      } else {
-        // Two S buffers: S of tile i + 1 is multiplied while tile i is reduced
-        // (pass 1) or turned into p and multiplied by V (pass 2). The stream
-        // of S products runs on from pass 1 into pass 2, so the last step of
-        // pass 1 issues pass 2's first tile. `ring` is the stage of the oldest
-        // tile not yet released, `ahead` the next whose K is multiplied.
-        float sa[32], sb[32];
-        uint32_t p[4][4];
-        Ring ahead = ring;
-        auto issue_s = [&](float (&acc)[32]) {
-          mbar_wait(&full[ahead.idx], ahead.phase);
-          const uint64_t kdesc = desc_kmajor(k_tile(ahead.idx));
+          // S in two groups of two tiles: the first pair is masked and reduced
+          // while the second is multiplied
+          float s[L::MAX_TILES][32];
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16_ss<0>(acc, qdesc + 2 * kk, kdesc + 2 * kk, kk > 0);
-          wgmma_commit();
-          ahead.advance();
-        };
-        auto release = [&]() {
-          if (lane == 0) mbar_arrive(&empty[ring.idx]);
-          ring.advance();
-        };
-        // pass 1 on tile i, its S complete: the exact max (and K1's row sum)
-        auto take1 = [&](float (&cur)[32], int i) {
-          reg_fence(cur);
-          release();
-          mask_cols(cur, i * L::KEYS, T_len, x);
-          float mx[2] = {-INFINITY, -INFINITY};
-          tile_max(cur, mx);
+          for (int half = 0; half < 2; ++half) {
 #pragma unroll
-          for (int ii = 0; ii < 2; ++ii) {
-            const float m_new = fmaxf(m[ii], quad_max(mx[ii]));
-            if constexpr (K1) {  // this thread's share of the f32 row sum, rescaled to the new max
-              float sum = 0.f;
+            for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-              for (int j = 0; j < 8; ++j) {
-                sum += expf(cur[4 * j + 2 * ii] - m_new);
-                sum += expf(cur[4 * j + 2 * ii + 1] - m_new);
-              }
-              l[ii] = l[ii] * expf(m[ii] - m_new) + sum;
-            }
-            m[ii] = m_new;
+              for (int c = 2 * half; c < 2 * half + 2; ++c)
+                wgmma_m64n64k16_ss<0>(s[c], qdesc + 2 * kk, desc_kmajor(k_tile(sidx[c])) + 2 * kk, kk > 0);
+            wgmma_commit();
           }
-        };
-        // pass 2 on tile i, its S and tile i - 1's P V complete: p, O += P V
-        auto take2 = [&](float (&cur)[32], int i) {
-          reg_fence(cur);
-          if (i > 0) release();
-          mask_cols(cur, i * L::KEYS, T_len, x);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            if (half == 0)
+              wgmma_wait<1>();
+            else
+              wgmma_wait<0>();
+#pragma unroll
+            for (int c = 2 * half; c < 2 * half + 2; ++c) {
+              reg_fence(s[c]);
+              mask_cols(s[c], c * L::KEYS, T_len, x);
+              tile_max(s[c], m);
+            }
+          }
+          if (lane == 0) mbar_arrive(&q_empty[qb]);
+          m[0] = quad_max(m[0]);
+          m[1] = quad_max(m[1]);
+
+          uint32_t p[L::MAX_TILES][4][4];
           if constexpr (K1) {
-            exp_k1<false>(cur, m, l);
-            p_k1(cur, l, rl, p);
+#pragma unroll
+            for (int c = 0; c < L::MAX_TILES; ++c) exp_k1<true>(s[c], m, l);
+            l[0] = quad_sum(l[0]);
+            l[1] = quad_sum(l[1]);
+            rl[0] = __frcp_rn(l[0]);
+            rl[1] = __frcp_rn(l[1]);
+#pragma unroll
+            for (int c = 0; c < L::MAX_TILES; ++c) p_k1(s[c], l, rl, p[c]);
           } else {
-            p_k3(cur, m, l, p);
+#pragma unroll
+            for (int c = 0; c < L::MAX_TILES; ++c) p_k3(s[c], m, l, p[c]);
           }
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) reg_fence(p[kk]);
-          const uint64_t vdesc = desc_mnmajor(v_tile(ring.idx));
+          for (int c = 0; c < L::MAX_TILES; ++c)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) reg_fence(p[c][kk]);
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_m64n64k16_rs<1>(o_acc, p[kk], vdesc + 128 * kk, i > 0 || kk > 0);
+          for (int c = 0; c < L::MAX_TILES; ++c)
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_m64n64k16_rs<1>(o_acc, p[c][kk], desc_mnmajor(v_tile(sidx[c])) + 128 * kk,
+                                    c > 0 || kk > 0);
           wgmma_commit();
-        };
-
-        issue_s(sa);
-        for (int i = 0; i < nt; i += 2) {
-          issue_s(sb);
-          wgmma_wait<1>();
-          take1(sa, i);
-          issue_s(sa);  // at the last pair, pass 2's first tile
-          wgmma_wait<1>();
-          take1(sb, i + 1);
+          wgmma_wait<0>();
+          reg_fence(o_acc);
+#pragma unroll
+          for (int c = 0; c < L::MAX_TILES; ++c) {
+            if (lane == 0) mbar_arrive(&empty[ring.idx]);
+            ring.advance();
+          }
         }
-        if constexpr (K1) {
+        // epilogue: K3 divides by the f32 sum, K1 casts; each quad transposes
+        // its row's words so a lane stores 16 contiguous bytes
+        if constexpr (!K1) {
           l[0] = quad_sum(l[0]);
           l[1] = quad_sum(l[1]);
           rl[0] = __frcp_rn(l[0]);
           rl[1] = __frcp_rn(l[1]);
         }
-        for (int i = 0; i < nt - 2; i += 2) {
-          issue_s(sb);
-          wgmma_wait<1>();
-          take2(sa, i);
-          issue_s(sa);
-          wgmma_wait<1>();
-          take2(sb, i + 1);
-        }
-        issue_s(sb);
-        wgmma_wait<1>();
-        take2(sa, nt - 2);
-        wgmma_wait<0>();
-        take2(sb, nt - 1);
-        wgmma_wait<0>();
-        reg_fence(o_acc);
-        release();
-        if (lane == 0) mbar_arrive(&q_empty[qb]);
-      }
-      // epilogue: K3 divides by the f32 sum, K1 casts; each quad transposes
-      // its row's words so a lane stores 16 contiguous bytes
-      if constexpr (!K1) {
-        l[0] = quad_sum(l[0]);
-        l[1] = quad_sum(l[1]);
-        rl[0] = __frcp_rn(l[0]);
-        rl[1] = __frcp_rn(l[1]);
-      }
-      const int row0 = qt * L::ITEM_ROWS + wg * L::ROWS + wl * 16 + g;
+        const int row0 = qt * L::ITEM_ROWS + wg * L::ROWS + wl * 16 + g;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        uint32_t wv[8];
+        for (int i = 0; i < 2; ++i) {
+          uint32_t wv[8];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float a = o_acc[4 * j + 2 * i], c = o_acc[4 * j + 2 * i + 1];
-          wv[j] = K1 ? pack_bf16(a, c)
-                     : pack_bf16(div_rn<false>(a, l[i], rl[i]), div_rn<false>(c, l[i], rl[i]));
-        }
-        const int t = row0 + 8 * i;
-        if constexpr (K1) {
-          if (o32 != nullptr) {  // the backward's row state (attention_bwd.cu)
-            if (x == 0 && t < Tp) {
-              row_m[(long long)bh * Tp + t] = m[i];
-              row_l[(long long)bh * Tp + t] = l[i];
-            }
-            float* dst32 = o32 + (((long long)b * T_len + t) * H + h) * L::HD + 2 * x;
-#pragma unroll
-            for (int j = 0; j < 8; ++j)
-              if (t < T_len)
-                *reinterpret_cast<float2*>(dst32 + 8 * j) =
-                    make_float2(o_acc[4 * j + 2 * i], o_acc[4 * j + 2 * i + 1]);
+          for (int j = 0; j < 8; ++j) {
+            const float a = o_acc[4 * j + 2 * i], c = o_acc[4 * j + 2 * i + 1];
+            wv[j] = K1 ? pack_bf16(a, c)
+                       : pack_bf16(div_rn<false>(a, l[i], rl[i]), div_rn<false>(c, l[i], rl[i]));
           }
-        }
-        bf16* dst = o + ((long long)b * T_len + t) * ld_out + (long long)h * L::HD;
+          const int t = row0 + 8 * i;
+          if constexpr (K1) {
+            if (o32 != nullptr) {  // the backward's row state (attention_bwd.cu)
+              if (x == 0 && t < Tp) {
+                row_m[(long long)bh * Tp + t] = m[i];
+                row_l[(long long)bh * Tp + t] = l[i];
+              }
+              float* dst32 = o32 + (((long long)b * T_len + t) * H + h) * L::HD + 2 * x;
 #pragma unroll
-        for (int grp = 0; grp < 2; ++grp) {
-          uint32_t a4[4] = {wv[4 * grp], wv[4 * grp + 1], wv[4 * grp + 2], wv[4 * grp + 3]};
-          quad_transpose(a4, x);
-          if (t < T_len)
-            *reinterpret_cast<uint4*>(dst + 8 * (4 * grp + x)) = make_uint4(a4[0], a4[1], a4[2], a4[3]);
+              for (int j = 0; j < 8; ++j)
+                if (t < T_len)
+                  *reinterpret_cast<float2*>(dst32 + 8 * j) =
+                      make_float2(o_acc[4 * j + 2 * i], o_acc[4 * j + 2 * i + 1]);
+            }
+          }
+          bf16* dst = o + ((long long)b * T_len + t) * ld_out + (long long)h * L::HD;
+#pragma unroll
+          for (int grp = 0; grp < 2; ++grp) {
+            uint32_t a4[4] = {wv[4 * grp], wv[4 * grp + 1], wv[4 * grp + 2], wv[4 * grp + 3]};
+            quad_transpose(a4, x);
+            if (t < T_len)
+              *reinterpret_cast<uint4*>(dst + 8 * (4 * grp + x)) = make_uint4(a4[0], a4[1], a4[2], a4[3]);
+          }
         }
       }
     }
@@ -469,6 +795,7 @@ static int launch_hopper(const CUtensorMap& qm, const CUtensorMap& km, const CUt
                          void* o, int B, int T_len, int H, int ld_out, float* const (&state)[3],
                          int ld_state, cudaStream_t stream) {
   typedef HopperAttn L;
+  constexpr size_t smem = ONE_PASS ? L::SMEM : TwoPassAttn::SMEM;
   auto kernel = hopper_attention_kernel<K1, ONE_PASS>;
   // once a device: the shared-memory attribute, the register check and the
   // SM count (0 until done, then -1, or the cudaError_t it met)
@@ -478,7 +805,7 @@ static int launch_hopper(const CUtensorMap& qm, const CUtensorMap& km, const CUt
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
   if (setup[dev] == 0) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     // setmaxnreg.inc waits for registers the producer gave back: a block
     // compiled with fewer than BLOCK_REGS a thread would wait forever
     cudaFuncAttributes attr;
@@ -492,7 +819,7 @@ static int launch_hopper(const CUtensorMap& qm, const CUtensorMap& km, const CUt
   const long long items = (long long)B * H * n_qt;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int grid = (int)(items < sms[dev] ? items : sms[dev]);
-  kernel<<<grid, L::THREADS, L::SMEM, stream>>>(qm, km, vm, static_cast<bf16*>(o), T_len, H, n_qt,
+  kernel<<<grid, L::THREADS, smem, stream>>>(qm, km, vm, static_cast<bf16*>(o), T_len, H, n_qt,
                                                 (int)items, ld_out, state[0], state[1], state[2], ld_state);
   return (int)cudaGetLastError();
 }
@@ -539,6 +866,15 @@ __global__ void exp_bf16_kernel(uint16_t* out) {
   }
 }
 
+// the same as the two-pass path takes it
+__global__ void exp_bf16_sq_kernel(uint16_t* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < 65536) {
+    const float x = __bfloat162float(__ushort_as_bfloat16((unsigned short)i));
+    out[i] = __bfloat16_as_ushort(__float2bfloat16(exp_bf16_sq(x)));
+  }
+}
+
 // out[i] = a[i] / b[i] as K1's p divides, for 0 <= a <= 1 <= b
 __global__ void div_kernel(const float* a, const float* b, float* out, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -571,6 +907,12 @@ extern "C" int gw_attention_encode_maps(const void* q, const void* k, const void
 // bits), for comparison with round(expf(x)). Returns a cudaError_t.
 extern "C" int gw_attention_exp_bf16(void* out, void* stream) {
   gw::exp_bf16_kernel<<<256, 256, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<uint16_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// The same for the two-pass path's exp (exp_bf16_sq). Returns a cudaError_t.
+extern "C" int gw_attention_exp_bf16_sq(void* out, void* stream) {
+  gw::exp_bf16_sq_kernel<<<256, 256, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<uint16_t*>(out));
   return (int)cudaGetLastError();
 }
 

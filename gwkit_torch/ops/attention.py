@@ -26,9 +26,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from gwkit_torch.ops import _cuda
+from gwkit_torch.utils.tracing import COUNTERS
 
 HEAD_DIM = 64  # the kernels' head width (every Whisper size)
 ROW_TILE = 64  # the kernels' query tile
+# kernel A's one-pass limit (csrc/attention.cu, HopperAttn::ONE_PASS_MAX_T):
+# a longer T takes the two-pass path
+ONE_PASS_MAX_T = 256
 
 
 def state_rows(T: int) -> int:
@@ -132,12 +136,15 @@ def _launch(lib, stream: int, q, k, v, out, B: int, T: int, H: int, ld_in: int, 
             k1: bool, state: Optional[RowState] = None) -> None:
     """Launch kernel A on row-strided q/k/v views (rows of ``ld_in`` elements);
     ``k1`` picks K1's softmax contract, else K3's. A ``state`` (K1 only) is
-    written beside the output."""
+    written beside the output. A launch past ``ONE_PASS_MAX_T`` counts in
+    ``COUNTERS["attention_two_pass_launches"]`` too."""
     saved = (None, None, None) if state is None else (state.m.data_ptr(), state.l.data_ptr(), state.o.data_ptr())
     err = lib.gw_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *saved,
                            B, T, H, ld_in, ld_out, state_rows(T), _cuda.BF16_CODE, int(k1), stream)
     _cuda.check(err, "attention")
     _cuda.LAUNCHES["attention"] += 1
+    if T > ONE_PASS_MAX_T:
+        COUNTERS["attention_two_pass_launches"] += 1
 
 
 def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, save_state: bool = False):

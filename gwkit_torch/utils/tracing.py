@@ -41,11 +41,13 @@ from torch.autograd import profiler as _autograd_profiler
 # route of their MLP: ``mlp_fused_layers`` (kernel C) and
 # ``mlp_split_layers`` (two launches of kernel B); and
 # ``ln_gemm_streamed_launches``, the launches of kernel B's streamed kernel
-# (a subset of ``_cuda.LAUNCHES["ln_gemm"]``, which counts both of B's).
+# (a subset of ``_cuda.LAUNCHES["ln_gemm"]``, which counts both of B's); and
+# ``attention_two_pass_launches``, kernel A's launches past its one-pass
+# limit (T > 256; a subset of ``_cuda.LAUNCHES["attention"]``).
 COUNTERS: Dict[str, int] = {"windows": 0, "padded_windows": 0, "h2d_bytes": 0, "builds": 0,
                             "qadapter_graph_captures": 0, "qadapter_graph_replays": 0,
                             "qadapter_eager_calls": 0, "mlp_fused_layers": 0, "mlp_split_layers": 0,
-                            "ln_gemm_streamed_launches": 0}
+                            "ln_gemm_streamed_launches": 0, "attention_two_pass_launches": 0}
 
 _NO_SPAN = contextlib.nullcontext()
 

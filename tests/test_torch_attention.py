@@ -13,7 +13,10 @@ import jax.numpy as jnp
 
 from gwkit.ops.attention import flash_attention as gw_flash
 from gwkit.ops.attention import reference_attention as gw_reference
+from gwkit_torch.ops import _cuda
+from gwkit_torch.ops import attention as torch_attention
 from gwkit_torch.ops.attention import attention_from_qkv, flash_attention, reference_attention
+from gwkit_torch.utils.tracing import COUNTERS
 
 TOL = dict(rtol=2e-5, atol=2e-6)
 EDGE_T = [63, 64, 65, 255, 256, 257, 300]
@@ -69,3 +72,27 @@ def test_attention_wrapper_takes_plain_version_on_cpu():
     q, k, v = (torch.from_numpy(a) for a in _qkv(50, 2, seed=2))
     np.testing.assert_array_equal(flash_attention(q, k, v).numpy(),
                                   reference_attention(q, k, v).numpy())
+
+
+def test_two_pass_launch_counter(monkeypatch):
+    """Each launch of kernel A past its one-pass limit adds one to
+    ``COUNTERS["attention_two_pass_launches"]`` beside ``LAUNCHES["attention"]``;
+    a launch at T = 256 counts only in the latter (a stand-in library that
+    accepts the call, as the card's does)."""
+    calls = []
+
+    class Lib:
+        def gw_attention(self, *args):
+            calls.append(args)
+            return 0
+
+    assert torch_attention.ONE_PASS_MAX_T == 256
+    monkeypatch.setitem(COUNTERS, "attention_two_pass_launches", 5)
+    _cuda.reset_counts()
+    counted = []
+    for T, k1 in ((257, False), (1500, True), (256, False)):
+        q = torch.zeros(1, T, 2, 64).bfloat16()
+        torch_attention._launch(Lib(), 0, q, q, q, torch.empty_like(q), 1, T, 2, 128, 128, k1=k1)
+        counted.append((COUNTERS["attention_two_pass_launches"], _cuda.LAUNCHES["attention"]))
+    assert counted == [(6, 1), (7, 2), (7, 3)]
+    assert [c[8] for c in calls] == [257, 1500, 256] and [c[14] for c in calls] == [0, 1, 0]
